@@ -1,0 +1,240 @@
+"""Stream compaction for the static-bucket wavefront.
+
+`compact_rows(src, act, B, fill_row)` moves the active rows of src (N, C),
+in order, to the first rows of a (B, C) bucket; rows past the active count
+become `fill_row`, and active rows past B are dropped (the caller's
+overflow flag reports that). `expand_rows(child, act)` is its transpose:
+out[i] = act[i] ? child[cumsum(act)[i] - 1] : 0, giving (N, C) from
+(B, C). Each is the other's VJP, through `torch.autograd.Function`.
+
+On a CUDA tensor both launch the hand-written kernels of
+`csrc/compact.cu` (replacing the TPU kernels `_compact_kernel` and
+`_expand_kernel` of fast_ray_tracer_tpu/ops/compact_pallas.py), built on
+first use with nvcc into build/kernels/ and loaded with ctypes; a kernel
+that cannot be built or launched raises. On a CPU tensor they take the
+plain torch versions below, which are also the reference the kernels are
+held to. `LAUNCHES` counts kernel launches per operation.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+_CSRC = Path(__file__).resolve().parents[1] / "csrc" / "compact.cu"
+_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+# kernel launches per operation since the last reset (a plain int each)
+LAUNCHES = {"compact": 0, "expand": 0}
+
+_lib = None
+
+
+# ---------------------------------------------------------------------------
+# plain torch versions (CPU path and reference)
+# ---------------------------------------------------------------------------
+
+def compact_rows_plain(src, act, B: int, fill_row):
+    """Plain torch compact_rows; no host sync."""
+    n, c = src.shape
+    pos = torch.cumsum(act, 0) - 1
+    idx = torch.where(act & (pos < B), pos, B)
+    out = torch.empty((B + 1, c), dtype=src.dtype, device=src.device)
+    for k, v in enumerate(fill_row):
+        out[:, k] = v
+    # every dropped row lands on the extra last row, which is cut off
+    out.index_copy_(0, idx, src)
+    return out[:B]
+
+
+def expand_rows_plain(child, act):
+    """Plain torch expand_rows; no host sync."""
+    pos = (torch.cumsum(act, 0) - 1).clamp(0, child.shape[0] - 1)
+    return torch.where(act[:, None], child[pos], 0.0)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels
+# ---------------------------------------------------------------------------
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the compaction kernels need the "
+                       "CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def build() -> Path:
+    """Build csrc/compact.cu into build/kernels/ unless a library of the
+    same source and flags is already there; return its path."""
+    digest = hashlib.sha256(
+        _CSRC.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    so = _BUILD_DIR / f"libfrt_compact_{digest}.so"
+    if so.exists():
+        return so
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC)],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {_CSRC} (exit {proc.returncode}):"
+                           f"\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        for name in ("frt_compact_f32", "frt_compact_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [vp, vp, vp, vp, vp, vp, i64, i32, i64,
+                           ctypes.POINTER(ctypes.c_double), vp]
+            fn.restype = i32
+        for name in ("frt_expand_f32", "frt_expand_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [vp, vp, vp, vp, vp, vp, i64, i32, i64, vp]
+            fn.restype = i32
+        for name in ("frt_tile", "frt_max_c"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = i32
+        _lib = lib
+    return _lib
+
+
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def _check(rows, act, what: str):
+    if rows.dtype not in _SUFFIX:
+        raise TypeError(f"{what}: float32 or float64 rows, got {rows.dtype}")
+    if rows.dim() != 2 or not rows.is_contiguous():
+        raise ValueError(f"{what}: rows must be a contiguous (N, C) tensor")
+    if act.dtype != torch.bool or act.dim() != 1 or not act.is_contiguous():
+        raise ValueError(f"{what}: act must be a contiguous 1-D bool tensor")
+    if act.device != rows.device:
+        raise ValueError(f"{what}: act on {act.device}, rows on {rows.device}")
+
+
+def _scratch(n: int, device):
+    nb = max(1, -(-n // _load().frt_tile()))
+    return (torch.empty(nb, dtype=torch.int32, device=device),
+            torch.empty(nb, dtype=torch.int32, device=device),
+            torch.empty(1, dtype=torch.int32, device=device))
+
+
+def _raise_on(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def compact_rows_cuda(src, act, B: int, fill_row):
+    """compact_rows through the CUDA kernel (csrc/compact.cu)."""
+    _check(src, act, "compact_rows")
+    n, c = src.shape
+    lib = _load()
+    max_c = lib.frt_max_c()
+    if act.shape[0] != n or len(fill_row) != c or not 1 <= c <= max_c:
+        raise ValueError(f"compact_rows: act {tuple(act.shape)}, fill row of "
+                         f"{len(fill_row)} for src {tuple(src.shape)} "
+                         f"(C <= {max_c})")
+    if not 1 <= B < 2**31 or n >= 2**31:
+        raise ValueError(f"compact_rows: B={B}, N={n} out of range")
+    with torch.cuda.device(src.device):
+        out = torch.empty((B, c), dtype=src.dtype, device=src.device)
+        count, off, total = _scratch(n, src.device)
+        fill = (ctypes.c_double * c)(*fill_row)
+        stream = torch.cuda.current_stream(src.device).cuda_stream
+        err = getattr(lib, "frt_compact_" + _SUFFIX[src.dtype])(
+            src.data_ptr(), act.data_ptr(), out.data_ptr(), count.data_ptr(),
+            off.data_ptr(), total.data_ptr(), n, c, B, fill, stream)
+        LAUNCHES["compact"] += 1
+    _raise_on(err, "compact_rows")
+    return out
+
+
+def expand_rows_cuda(child, act):
+    """expand_rows through the CUDA kernel (csrc/compact.cu)."""
+    _check(child, act, "expand_rows")
+    b, c = child.shape
+    n = act.shape[0]
+    if not 1 <= b < 2**31 or n >= 2**31:
+        raise ValueError(f"expand_rows: B={b}, N={n} out of range")
+    lib = _load()
+    with torch.cuda.device(child.device):
+        out = torch.empty((n, c), dtype=child.dtype, device=child.device)
+        count, off, total = _scratch(n, child.device)
+        stream = torch.cuda.current_stream(child.device).cuda_stream
+        err = getattr(lib, "frt_expand_" + _SUFFIX[child.dtype])(
+            child.data_ptr(), act.data_ptr(), out.data_ptr(),
+            count.data_ptr(), off.data_ptr(), total.data_ptr(), n, c, b,
+            stream)
+        LAUNCHES["expand"] += 1
+    _raise_on(err, "expand_rows")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# public, differentiable entry points
+# ---------------------------------------------------------------------------
+
+def _on(x, cpu_fn, cuda_fn, *args):
+    """The plain version for a CPU tensor, the kernel for a CUDA tensor."""
+    if x.device.type == "cpu":
+        return cpu_fn(x, *args)
+    if x.device.type == "cuda":
+        return cuda_fn(x, *args)
+    raise ValueError(f"no compaction for tensors on {x.device}")
+
+
+class _CompactRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, src, act, B, fill_row):
+        ctx.save_for_backward(act)
+        return _on(src, compact_rows_plain, compact_rows_cuda, act, B,
+                   fill_row)
+
+    @staticmethod
+    def backward(ctx, g):
+        (act,) = ctx.saved_tensors
+        return expand_rows(g.contiguous(), act), None, None, None
+
+
+class _ExpandRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, child, act):
+        ctx.save_for_backward(act)
+        ctx.bucket = child.shape[0]
+        return _on(child, expand_rows_plain, expand_rows_cuda, act)
+
+    @staticmethod
+    def backward(ctx, g):
+        (act,) = ctx.saved_tensors
+        zero = (0.0,) * g.shape[1]
+        return compact_rows(g.contiguous(), act, ctx.bucket, zero), None
+
+
+def compact_rows(src, act, B: int, fill_row):
+    """Active rows of src (N, C) compacted, in order, to the front of a
+    (B, C) output; rows past the active count become `fill_row`. Its VJP
+    is expand_rows of the cotangent."""
+    return _CompactRows.apply(src, act, int(B), tuple(fill_row))
+
+
+def expand_rows(child, act):
+    """(N, C): act[i] ? child[cumsum(act)[i]-1] : 0 — the transpose of
+    compact_rows. Its VJP is compact_rows with a zero fill."""
+    return _ExpandRows.apply(child, act)

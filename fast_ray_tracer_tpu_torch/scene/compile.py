@@ -1,0 +1,382 @@
+"""Scene compiler: SceneDesc -> SceneIR tensors.
+
+The numpy table construction of the JAX package's `compile_scene`, for the
+scenes this slice renders: analytic primitives under any nesting of
+groups, materials, procedural patterns with their children, and point
+lights. Transform chains are composed and inverted on the host, group
+hierarchies dissolve into per-leaf world->object inverses, and the
+post-divide shadow-walk rank of every leaf is recovered by simulating the
+reference's BVH build (scene/divide.py). The tables are byte-identical to
+the JAX package's; only the final wrap differs: `SceneIR(...).to(device,
+dtype)`.
+
+Not in this slice (each raises NotImplementedError): triangles and OBJ
+meshes, texture patterns, CSG, the XYZ and LAB input color spaces, and
+area, circle and hemisphere lights.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from fast_ray_tracer_tpu_torch.scene import divide as div
+from fast_ray_tracer_tpu_torch.scene import ir as IR
+from fast_ray_tracer_tpu_torch.scene.ir import SceneIR, SceneMeta
+from fast_ray_tracer_tpu_torch.scene.model import (
+    MaterialDesc, PatternDesc, SceneDesc, ShapeDesc,
+)
+
+_KIND_TO_TYPE = {
+    "sphere": IR.SPHERE, "plane": IR.PLANE, "cube": IR.CUBE,
+    "cylinder": IR.CYLINDER, "cone": IR.CONE, "toroid": IR.TOROID,
+}
+
+_PAT_KIND = {
+    "checker": IR.PAT_CHECKER, "gradient": IR.PAT_GRADIENT,
+    "radial_gradient": IR.PAT_RADIAL_GRADIENT, "ring": IR.PAT_RING,
+    "stripe": IR.PAT_STRIPE, "blended": IR.PAT_BLENDED,
+    "nested": IR.PAT_NESTED, "perturbed": IR.PAT_PERTURBED,
+    "map": IR.PAT_MAP, "uv_checker": IR.PAT_UV_CHECKER,
+    "uv_align_check": IR.PAT_UV_ALIGN_CHECK, "uv_image": IR.PAT_UV_TEXTURE,
+    "uv_gradient": IR.PAT_UV_GRADIENT,
+    "uv_radial_gradient": IR.PAT_UV_RADIAL_GRADIENT,
+}
+
+_MAP_KIND = {
+    "cube": IR.MAP_CUBE, "cylinder": IR.MAP_CYLINDER, "plane": IR.MAP_PLANE,
+    "sphere": IR.MAP_SPHERE, "toroid": IR.MAP_TOROID,
+    "triangle": IR.MAP_TRIANGLE,
+}
+
+
+def transform_matrix(item) -> np.ndarray:
+    """One YAML transform entry -> 4x4 (host float64)."""
+    op = item[0]
+    m = np.eye(4)
+    if op == "translate":
+        m[:3, 3] = item[1:4]
+    elif op == "scale":
+        m[0, 0], m[1, 1], m[2, 2] = item[1:4]
+    elif op == "rotate-x":
+        c, s = math.cos(item[1]), math.sin(item[1])
+        m[1, 1], m[1, 2], m[2, 1], m[2, 2] = c, -s, s, c
+    elif op == "rotate-y":
+        c, s = math.cos(item[1]), math.sin(item[1])
+        m[0, 0], m[0, 2], m[2, 0], m[2, 2] = c, s, -s, c
+    elif op == "rotate-z":
+        c, s = math.cos(item[1]), math.sin(item[1])
+        m[0, 0], m[0, 1], m[1, 0], m[1, 1] = c, -s, s, c
+    elif op == "shear":
+        (m[0, 1], m[0, 2], m[1, 0], m[1, 2], m[2, 0], m[2, 1]) = item[1:7]
+    else:
+        raise ValueError(f"Unknown transform: {op}")
+    return m
+
+
+def compose_chain(chain) -> np.ndarray:
+    """YAML transform list -> matrix; later entries apply last
+    (reference transform_chain semantics, yaml_parser/transform.py:26-40)."""
+    m = np.eye(4)
+    for item in chain or []:
+        m = transform_matrix(item) @ m
+    return m
+
+
+class _Tables:
+    """Mutable accumulators during the compile walk."""
+
+    def __init__(self, decode):
+        self.decode = decode           # input color decode fn (numpy)
+        self.a_type: List[int] = []
+        self.a_inv: List[np.ndarray] = []
+        self.a_params: List[List[float]] = []
+        self.a_mat: List[int] = []
+        self.a_doc: List[int] = []        # document-order leaf id per prim
+        self.next_leaf = 0
+        self.m_rows: List[dict] = []
+        self.p_rows: List[dict] = []
+
+    def add_pattern(self, p: Optional[PatternDesc]) -> int:
+        if p is None:
+            return -1
+        row = {
+            "type": _PAT_KIND[p.kind],
+            "inv": np.linalg.inv(compose_chain(p.transform)),
+            "colors": np.zeros((5, 3)),
+            "params": np.zeros(6),
+            "children": -np.ones(6, dtype=np.int64),
+            "map_kind": 0,
+            "tex": -1,
+        }
+        if p.kind in ("checker", "gradient", "radial_gradient", "ring",
+                      "stripe", "uv_checker", "uv_align_check",
+                      "uv_gradient", "uv_radial_gradient"):
+            cs = np.asarray(self.decode(np.asarray(p.colors,
+                                                   dtype=np.float64)))
+            row["colors"][: len(p.colors)] = cs
+            if p.kind == "uv_checker":
+                row["params"][0] = p.width
+                row["params"][1] = p.height
+        elif p.kind == "uv_image":
+            raise NotImplementedError("texture patterns are not ported yet")
+        elif p.kind in ("blended", "nested", "perturbed"):
+            kids = [self.add_pattern(c) for c in p.children]
+            row["children"][: len(kids)] = kids
+            if p.kind == "perturbed":
+                row["params"][:5] = [p.frequency, p.scale_factor,
+                                     p.persistence, p.octaves, p.seed]
+        elif p.kind == "map":
+            row["map_kind"] = _MAP_KIND[p.mapping]
+            faces = [self.add_pattern(f) for f in p.faces]
+            row["children"][: len(faces)] = faces
+        self.p_rows.append(row)
+        return len(self.p_rows) - 1
+
+    def add_material(self, m: Optional[MaterialDesc]) -> int:
+        if m is None:
+            m = MaterialDesc()
+        base = np.asarray(self.decode(np.asarray(m.color, dtype=np.float64)))
+        row = {
+            # explicit MTL-style overrides win over legacy fields
+            "Ka": np.asarray(m.Ka) if m.Ka is not None else base * m.ambient,
+            "Kd": np.asarray(m.Kd) if m.Kd is not None else base * m.diffuse,
+            "Ks": np.asarray(m.Ks) if m.Ks is not None else base * m.specular,
+            "Tf": (np.asarray(m.Tf) if m.Tf is not None
+                   else np.full(3, m.transparency)),
+            "refl": (np.asarray(m.refl_color) if m.refl_color is not None
+                     else np.full(3, m.reflective)),
+            "Ns": m.shininess,
+            "Ni": m.refractive_index,
+            "Tr": m.transparency,
+            "casts_shadow": bool(m.casts_shadow),
+            "map": [-1] * 8,
+        }
+        row["reflective"] = bool((row["refl"] > 0.0).any())
+        for i, slot in enumerate(IR.MAP_SLOTS):
+            if slot in m.patterns:
+                row["map"][i] = self.add_pattern(m.patterns[slot])
+        self.m_rows.append(row)
+        return len(self.m_rows) - 1
+
+
+def _walk(shape: ShapeDesc, parent_m: np.ndarray, tables: _Tables,
+          inherited_mat: Optional[int], nodes: List[div.Node]) -> None:
+    """Dissolve the shape tree into flat leaf rows. `nodes` is the parent's
+    children list in the divide-simulation tree (local transforms only),
+    used to recover the post-divide shadow-walk leaf ordering."""
+    m_local = compose_chain(shape.transform)
+    m_world = parent_m @ m_local
+    m_flat = m_local.ravel().tolist()
+
+    if shape.kind == "group":
+        node = div.Node(kind="group", transform=m_flat)
+        nodes.append(node)
+        for child in shape.children:
+            _walk(child, m_world, tables, inherited_mat, node.children)
+        return
+    if shape.kind not in _KIND_TO_TYPE:
+        raise NotImplementedError(
+            f"shape kind {shape.kind!r} is not ported yet")
+
+    mat_id = (tables.add_material(shape.material)
+              if shape.material is not None else
+              (inherited_mat if inherited_mat is not None
+               else tables.add_material(None)))
+    params = [0.0, 0.0, 0.0, 0.0]
+    if shape.kind in ("cylinder", "cone"):
+        params = [shape.minimum, shape.maximum,
+                  1.0 if shape.closed else 0.0, 0.0]
+    elif shape.kind == "toroid":
+        params = [shape.r1, shape.r2, 0.0, 0.0]
+    tables.a_type.append(_KIND_TO_TYPE[shape.kind])
+    tables.a_inv.append(np.linalg.inv(m_world))
+    tables.a_params.append(params)
+    tables.a_mat.append(mat_id)
+    tables.a_doc.append(tables.next_leaf)
+    nodes.append(div.Node(
+        kind=shape.kind, transform=m_flat, leaf_id=tables.next_leaf,
+        obj_box=div.leaf_box(shape.kind, minimum=shape.minimum,
+                             maximum=shape.maximum, r1=shape.r1, r2=shape.r2)))
+    tables.next_leaf += 1
+
+
+def compile_scene(scene: SceneDesc, dtype=torch.float32,
+                  device="cpu") -> SceneIR:
+    decode = _np_decode(scene.config.color_space)
+    tables = _Tables(decode)
+
+    root = div.Node(kind="group", transform=list(div.IDENTITY))
+    for shape in scene.world:
+        _walk(shape, np.eye(4), tables, inherited_mat=None,
+              nodes=root.children)
+
+    # post-divide DFS leaf order -> shadow-walk rank per document leaf
+    doc_rank = np.asarray(
+        div.shadow_ranks(root, scene.config.divide_threshold,
+                         tables.next_leaf),
+        dtype=np.int64) if tables.next_leaf else np.zeros(0, np.int64)
+
+    # ---- analytic block, grouped by type ----
+    n_analytic = len(tables.a_type)
+    if n_analytic:
+        order = np.argsort(np.asarray(tables.a_type, dtype=np.int64),
+                           kind="stable")
+        a_type = np.asarray(tables.a_type, dtype=np.int64)[order]
+        inv = np.stack(tables.a_inv)[order]
+        params = np.asarray(tables.a_params)[order]
+        a_mat = np.asarray(tables.a_mat, dtype=np.int64)[order]
+        a_rank = doc_rank[np.asarray(tables.a_doc, dtype=np.int64)][order]
+    else:
+        a_type = np.zeros(0, np.int64)
+        inv = np.zeros((0, 4, 4))
+        params = np.zeros((0, 4))
+        a_mat = np.zeros(0, np.int64)
+        a_rank = np.zeros(0, np.int64)
+
+    type_ranges = []
+    for t in range(6):
+        idx = np.nonzero(a_type == t)[0]
+        if len(idx):
+            type_ranges.append((t, int(idx[0]), int(len(idx))))
+
+    # ---- materials ----
+    if not tables.m_rows:
+        tables.add_material(None)
+    M = len(tables.m_rows)
+    mat = {k: np.stack([np.asarray(r[k], dtype=np.float64)
+                        for r in tables.m_rows])
+           for k in ("Ka", "Kd", "Ks", "Tf", "refl")}
+    mat_Ns = np.asarray([r["Ns"] for r in tables.m_rows])
+    mat_Ni = np.asarray([r["Ni"] for r in tables.m_rows])
+    mat_Tr = np.asarray([r["Tr"] for r in tables.m_rows])
+    mat_reflective = np.asarray([r["reflective"] for r in tables.m_rows], bool)
+    mat_shadow = np.asarray([r["casts_shadow"] for r in tables.m_rows], bool)
+    mat_map = np.asarray([r["map"] for r in tables.m_rows], dtype=np.int64)
+
+    # ---- patterns ----
+    P = len(tables.p_rows)
+    if P:
+        pat_type = np.asarray([r["type"] for r in tables.p_rows], np.int64)
+        pat_inv = np.stack([r["inv"] for r in tables.p_rows])
+        pat_colors = np.stack([r["colors"] for r in tables.p_rows])
+        pat_params = np.stack([r["params"] for r in tables.p_rows])
+        pat_children = np.stack([r["children"] for r in tables.p_rows])
+        pat_map_kind = np.asarray([r["map_kind"] for r in tables.p_rows],
+                                  np.int64)
+        pat_tex = np.asarray([r["tex"] for r in tables.p_rows], np.int64)
+    else:
+        pat_type = np.zeros(0, np.int64)
+        pat_inv = np.zeros((0, 4, 4))
+        pat_colors = np.zeros((0, 5, 3))
+        pat_params = np.zeros((0, 6))
+        pat_children = np.zeros((0, 6), np.int64)
+        pat_map_kind = np.zeros(0, np.int64)
+        pat_tex = np.zeros(0, np.int64)
+
+    # ---- lights (point lights only in this slice) ----
+    L = len(scene.lights)
+    light_info = []
+    li_int = np.zeros((L, 3))
+    li_pos = np.zeros((L, 3))
+    li_points = np.zeros((L, 1, 3))
+    for i, ld in enumerate(scene.lights):
+        if ld.kind != "point":
+            raise NotImplementedError(f"{ld.kind} lights are not ported yet")
+        light_info.append((IR.LIGHT_POINT, ld.usteps, ld.vsteps,
+                           bool(ld.jitter), 1))
+        li_int[i] = ld.intensity
+        li_pos[i] = ld.at
+        li_points[i, 0] = ld.at
+
+    cfg = scene.config
+    has_refl = bool(mat_reflective.any()) and cfg.include_specular
+    has_refr = bool((mat_Tr > 0).any() or (mat_map[:, IR.SLOT_D] >= 0).any()) \
+        and cfg.include_specular
+    # the containers walk only matters when some Ni != 1 (renderer.c:406-447)
+    needs_sort = has_refr and bool((np.abs(mat_Ni - 1.0) > 1e-12).any())
+    n_hit_slots = int(sum(IR.TYPE_MAX_HITS[t] * c for t, _, c in type_ranges))
+
+    # static pattern structure for evaluator pruning
+    combinators = {IR.PAT_BLENDED, IR.PAT_NESTED, IR.PAT_PERTURBED}
+
+    def _depth(pid):
+        row = tables.p_rows[pid]
+        if row["type"] not in combinators:
+            return 0
+        kids = [k for k in row["children"] if k >= 0]
+        return 1 + max((_depth(int(k)) for k in kids), default=0)
+
+    meta = SceneMeta(
+        n_analytic=n_analytic, n_triangles=0, n_materials=M, n_patterns=P,
+        n_lights=L, type_ranges=tuple(type_ranges),
+        light_info=tuple(light_info), max_light_samples=1,
+        has_reflective=has_refl, has_refractive=has_refr,
+        needs_hit_sort=needs_sort,
+        use_clusters=False, n_clusters=0, cluster_size=64,
+        max_hits=min(64, max(2, n_hit_slots)),
+        any_patterns=bool((mat_map >= 0).any()),
+        any_bump=bool((mat_map[:, IR.SLOT_BUMP] >= 0).any()),
+        pattern_slots=tuple(int(s) for s in range(mat_map.shape[1])
+                            if bool((mat_map[:, s] >= 0).any())),
+        pattern_kinds=tuple(sorted({int(t) for t in pat_type})),
+        map_kinds=tuple(sorted({int(r["map_kind"]) for r in tables.p_rows
+                                if r["type"] == IR.PAT_MAP})),
+        pattern_depth=max((_depth(i) for i in range(P)
+                           if tables.p_rows[i]["type"] in combinators),
+                          default=0),
+        max_perlin_octaves=int(max((r["params"][3] for r in tables.p_rows
+                                    if r["type"] == IR.PAT_PERTURBED),
+                                   default=0)),
+        csg_trees=(), has_csg=False,
+        csg_prim_leaf=(-1,) * n_analytic,
+        csg_prim_anc=(0,) * n_analytic,
+        csg_prim_side=(0,) * n_analytic,
+    )
+
+    f = lambda x: torch.as_tensor(np.asarray(x, dtype=np.float64))
+    i64 = lambda x: torch.as_tensor(np.asarray(x, dtype=np.int64))
+    b = lambda x: torch.as_tensor(np.asarray(x, dtype=bool))
+    z3, z2 = np.zeros((0, 3)), np.zeros((0, 2))
+    return SceneIR(
+        meta=meta,
+        inv_tf=f(inv), prim_params=f(params), material_id=i64(a_mat),
+        prim_shadow_rank=i64(a_rank),
+        tri_p1=f(z3), tri_e1=f(z3), tri_e2=f(z3),
+        tri_n1=f(z3), tri_n2=f(z3), tri_n3=f(z3),
+        tri_t1=f(z2), tri_t2=f(z2), tri_t3=f(z2),
+        tri_use_tex=b(np.zeros(0, bool)),
+        tri_material_id=i64(np.zeros(0)),
+        cluster_min=f(np.zeros((1, 3))), cluster_max=f(np.zeros((1, 3))),
+        mat_Ka=f(mat["Ka"]), mat_Kd=f(mat["Kd"]), mat_Ks=f(mat["Ks"]),
+        mat_Tf=f(mat["Tf"]), mat_refl=f(mat["refl"]),
+        mat_Ns=f(mat_Ns), mat_Ni=f(mat_Ni), mat_Tr=f(mat_Tr),
+        mat_reflective=b(mat_reflective),
+        mat_casts_shadow=b(mat_shadow), mat_map=i64(mat_map),
+        pat_type=i64(pat_type), pat_inv_tf=f(pat_inv),
+        pat_colors=f(pat_colors), pat_params=f(pat_params),
+        pat_children=i64(pat_children), pat_map_kind=i64(pat_map_kind),
+        pat_tex=i64(pat_tex),
+        # no textures: the JAX package's one-texel placeholder atlas
+        tex_data=f(np.zeros((1, 3))), tex_offset=i64(np.zeros(1)),
+        tex_width=i64(np.ones(1)), tex_height=i64(np.ones(1)),
+        light_intensity=f(li_int), light_pos=f(li_pos),
+        light_uvec=f(np.zeros((L, 3))), light_vvec=f(np.zeros((L, 3))),
+        light_normal=f(np.zeros((L, 3))), light_radius=f(np.zeros(L)),
+        light_points=f(li_points), light_mask=b(np.ones((L, 1), bool)),
+    ).to(device, dtype)
+
+
+def _np_decode(color_space: str):
+    """Input color decode on host numpy (matches colors.INPUT_DECODE)."""
+    if color_space == "SRGB":
+        return lambda c: np.where(
+            np.asarray(c) <= 0.04045, np.asarray(c) / 12.92,
+            np.power((np.asarray(c) + 0.055) / 1.055, 2.4))
+    if color_space in ("XYZ", "LAB"):
+        raise NotImplementedError(
+            f"the {color_space} color space is not ported yet")
+    return lambda c: np.asarray(c, dtype=np.float64)
