@@ -1,31 +1,50 @@
-"""Drive the PyTorch port's flagship render once on one CUDA card; check it.
+"""Drive the PyTorch port's main paths once on one CUDA card; check them.
 
     python3 chip_smoke.py [--reps N] [--profile PATH]
 
-Phases, one line each:
+Phases, one line each or more:
   1. device: the card's name and power limit (nvidia-smi); exits non-zero
      without CUDA;
-  2. build: builds the compaction kernels from csrc/ into build/kernels/;
+  2. build: builds both kernel sources of csrc/ into build/kernels/, the
+     two nvcc runs at once, and prints ptxas's register report;
   3. kernels: compact_rows (C=6) and expand_rows (C=9) at the level-0 shape
      of the 800x400 frame (N = 640,000; B from the bucket calibration), the
      CUDA kernel against its plain torch version on the same inputs, bit for
      bit, over act densities {0, .05, .5, .95, 1}, a ragged N, an overflow
      case, float64, a scan of more than 1024 tiles and a 5-row input, and
-     the VJPs of the autograd pair; median times of both;
+     the VJPs of the autograd pair; median times of both, and of the
+     nearest single PyTorch call (library_ms), which the port never calls;
   4. render: render_scene(glass_spheres(800, 400)) in float32 on the card,
      the whole frame in one chunk: the launch counts of that call, then the
      warm wall (median of --reps, default 3) and rays/s at 126 rays/pixel;
   5. equality: the same frame with the plain compaction, and an 800x16
      strip through trace_bucketed against the unrolled trace, bit for bit;
-  6. output: the PPM bytes of the frame, written to the temp directory.
-Then a JSON line of per-kernel results and, last, the device JSON line.
-Any failure raises and exits non-zero. --reps sets the number of warm
-frames of each compaction. With --profile, the level-0 kernel and plain
-calls and one warm frame run under torch.profiler, and their per-kernel
-device-time tables are written to PATH.
+  6. output: the PPM bytes of the frame, written to the temp directory;
+  7. mesh kernels: mesh closest (with and without a keep plane) and mesh
+     shadow, the CUDA kernel against its plain torch version, bit for bit
+     (t, index, rank): at the level-0 shape of the mesh_torus frame
+     (144,000 rays against 141,312 triangles) in float32 and float64, a
+     ragged ray count, dead lanes and strided ray views, and on the
+     512k-triangle x 16,384-ray soup of tools/bench_mesh_stream.py; median
+     times of both;
+  8. mesh render: render_scene(mesh_torus(600, 240)) in float32, the whole
+     frame in one chunk: the launch counts of that call (every kernel at
+     least once), no bucket overflow, a finite canvas; the warm wall
+     (median of --reps), pixels/s and traced rays/s (the probe's spawn
+     counts plus the primary rays, each with one shadow ray per light);
+  9. mesh equality: a 600x16 strip of the opaque and of the glass torus,
+     the kernel frame against the plain-mesh frame and trace_bucketed
+     against the unrolled trace, bit for bit;
+ 10. mesh output: the sha256 of the mesh frame's PPM.
+Then the card's nvidia-smi line, a JSON line of per-kernel results and,
+last, the device JSON line. Any failure raises and exits non-zero.
+--reps sets the number of warm frames of each render. With --profile, the
+level-0 compaction calls and one warm frame of each render run under
+torch.profiler, and their per-kernel device-time tables go to PATH.
 """
 
 import argparse
+import contextlib
 import hashlib
 import json
 import os
@@ -35,25 +54,39 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 
+from fast_ray_tracer_tpu_torch import _build
 from fast_ray_tracer_tpu_torch.io.ppm import construct_ppm
-from fast_ray_tracer_tpu_torch.ops import compact
+from fast_ray_tracer_tpu_torch.ops import compact, mesh
+from fast_ray_tracer_tpu_torch.ops.intersect import neutralize_rays
+from fast_ray_tracer_tpu_torch.ops.vec import normalize
 from fast_ray_tracer_tpu_torch.render.camera import (
     build_camera, rays_for_pixels,
 )
 from fast_ray_tracer_tpu_torch.render.integrator import (
-    FILL_ROW, build_statics, spawn_counts, trace, trace_bucketed,
+    FILL_ROW, build_statics, prepare_computations, spawn_counts, trace,
+    trace_bucketed,
 )
 from fast_ray_tracer_tpu_torch.render.render import (
     quantize_buckets, render_scene,
 )
 from fast_ray_tracer_tpu_torch.scene.compile import compile_scene
-from fast_ray_tracer_tpu_torch.scene.demo import glass_spheres
+from fast_ray_tracer_tpu_torch.scene.demo import glass_spheres, mesh_torus
+from fast_ray_tracer_tpu_torch.scene.ir import SceneIR, SceneMeta
 
 W, H = 800, 400
 RAYS_PER_PIXEL = 126      # 63 trace + 63 shadow rays (depth 5, 2 children)
+MW, MH = 600, 240         # the mesh frame
 SRC = "fast_ray_tracer_tpu_torch/csrc/compact.cu"
+MESH_SRC = "fast_ray_tracer_tpu_torch/csrc/mesh.cu"
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
+FP32_OPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
+# operations per (ray, triangle) Möller-Trumbore and per (ray,
+# supercluster) slab test, counted from csrc/mesh.cu: 46 add/sub/mul/div;
+# 6 sub, 6 mul, 6 min/max, 4 min/max across axes, 2 compares
+MT_OPS, SLAB_OPS = 46, 24
 
 
 def log(phase, msg):
@@ -91,8 +124,8 @@ def median_ms(fn, reps=30):
 
 
 def check_kernels(device, n0, b0, seed=0):
-    """Kernel == plain, bitwise, over the case grid; returns per-kernel
-    (max_abs_err, kernel ms, plain ms)."""
+    """Kernel == plain, bitwise, over the case grid; returns per kernel
+    its max_abs_err, ms, plain_ms, bound_ms, bound_by and library_ms."""
     g = torch.Generator(device=device).manual_seed(seed)
     n = 2 * n0
     cases = [(f"p={p}", n, p, b0, torch.float32)
@@ -152,16 +185,37 @@ def check_kernels(device, n0, b0, seed=0):
             median_ms(lambda: compact.expand_rows_cuda(child, act)),
             median_ms(lambda: compact.expand_rows_plain(child, act))),
     }
+    # the nearest single PyTorch calls, never called by the port: a
+    # boolean-mask gather (a host sync sizes it to the live count: no fill
+    # rows, no fixed bucket) and a masked scatter into a separate zero fill
+    mask9 = act[:, None].expand(n, 9)
+    library = {
+        "compact": median_ms(lambda: src[act]),
+        "expand": median_ms(lambda: torch.zeros(
+            (n, 9), device=device).masked_scatter_(mask9, child)),
+    }
+    # bytes the function must move: each input once, each output once
+    nbytes = {"compact": n * 6 * 4 + n + b0 * 6 * 4,
+              "expand": b0 * 9 * 4 + n + n * 9 * 4}
+    out = {}
     for k, (kern, plain) in timing.items():
+        bound = nbytes[k] / HBM_BYTES_PER_S * 1e3
         log("kernels", f"{k}_rows N={n} B={b0} p=0.5: kernel "
-            f"{kern * 1e3:.1f} us, plain {plain * 1e3:.1f} us (median of 30)")
-    return {k: (err[k], *timing[k]) for k in err}
+            f"{kern * 1e3:.1f} us, plain {plain * 1e3:.1f} us, library "
+            f"{library[k] * 1e3:.1f} us (median of 30); bound "
+            f"{bound * 1e3:.2f} us ({nbytes[k]} B at 3.35 TB/s)")
+        out[k] = {"max_abs_err": err[k], "ms": kern, "plain_ms": plain,
+                  "bound_ms": bound, "bound_by": "bytes",
+                  "library_ms": library[k]}
+    return out
 
 
-def frame(device, compaction="auto", stats=None):
+def frame(device, compaction="auto", stats=None, scene=None):
+    scene = glass_spheres(W, H) if scene is None else scene
+    cam = scene.camera
     t0 = time.perf_counter()
-    canvas = render_scene(glass_spheres(W, H), dtype=torch.float32,
-                          device=device, chunk_pixels=W * H,
+    canvas = render_scene(scene, dtype=torch.float32, device=device,
+                          chunk_pixels=cam.width * cam.height,
                           compaction=compaction, stats=stats)
     torch.cuda.synchronize()
     return canvas, time.perf_counter() - t0
@@ -186,9 +240,242 @@ def check_strip(device):
         raise AssertionError("bucketed strip differs from the unrolled trace")
 
 
-def profile_to(path, device, b0, card, wall):
+# ---------------------------------------------------------------------------
+# the mesh slice
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_mesh():
+    """Route the mesh queries of CUDA tensors to their plain versions, so
+    a frame can be held against the kernel frame."""
+    saved = mesh.closest_cuda, mesh.shadow_cuda
+    mesh.closest_cuda, mesh.shadow_cuda = mesh.closest_plain, mesh.shadow_plain
+    try:
+        yield
+    finally:
+        mesh.closest_cuda, mesh.shadow_cuda = saved
+
+
+def build_soup(device, n_tri=512 * 1024, n_rays=16384):
+    """tools/bench_mesh_stream.py's soup and rays from the same seeds:
+    64-triangle clusters along a coarse grid walk, rays between random
+    points of the grid."""
+    c = 64
+    nc = n_tri // c
+    rng = np.random.default_rng(0)
+    g = max(2, int(round(nc ** (1 / 3))))
+    idx = np.arange(nc)
+    centers = np.stack([idx % g, (idx // g) % g, idx // (g * g)],
+                       -1).astype(np.float32)
+    centers += rng.normal(0, 0.1, centers.shape)
+    base = centers[:, None, :] + rng.normal(0, 0.25, (nc, c, 3))
+    p1 = base.reshape(-1, 3).astype(np.float32)
+    e1 = rng.normal(0, 0.2, (nc * c, 3)).astype(np.float32)
+    e2 = rng.normal(0, 0.2, (nc * c, 3)).astype(np.float32)
+    v = np.stack([p1, p1 + e1, p1 + e2], 1)
+    meta = SceneMeta(n_triangles=nc * c, use_clusters=True, n_clusters=nc,
+                     cluster_size=c)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    ir = SceneIR(meta=meta, tri_p1=t(p1), tri_e1=t(e1), tri_e2=t(e2),
+                 cluster_min=t(v.reshape(nc, c * 3, 3).min(1)),
+                 cluster_max=t(v.reshape(nc, c * 3, 3).max(1)))
+    extent = float(centers.max())
+    rng = np.random.default_rng(1)
+    o = rng.uniform(-2, extent + 2, (n_rays, 3)).astype(np.float32)
+    tgt = rng.uniform(0, extent, (n_rays, 3)).astype(np.float32)
+    d = tgt - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return ir, t(o), t(d)
+
+
+def mesh_bound(m, orig, dirs, aux_bytes):
+    """Least time of a mesh query on these inputs: the larger of its
+    bytes (rays, planes and boxes read once, t and index written once) at
+    3.35 TB/s and its float32 operations — every (ray, supercluster) slab
+    test, and a Möller-Trumbore for each of the 128 triangles behind every
+    test that passes — at 67 TFLOP/s. Returns (ms, bound_by, ops)."""
+    n, nsc = orig.shape[0], m.box_min.shape[0]
+    rows = max(1, (1 << 22) // nsc)
+    passed = sum(int(mesh.cluster_mask(m.box_min, m.box_max, orig[r:r + rows],
+                                       dirs[r:r + rows]).sum())
+                 for r in range(0, n, rows))
+    ops = n * nsc * SLAB_OPS + passed * mesh.SC * MT_OPS
+    nbytes = (n * 6 + m.tris.numel() + 6 * nsc) * 4 + n * 8 \
+        + aux_bytes * nsc * mesh.SC
+    t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", ops)
+
+
+def _equal_outputs(got, want):
+    """Bitwise equality of two output tuples; max |difference| of the
+    finite float values (inf == inf counts as equal)."""
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.is_floating_point():
+            fin = torch.isfinite(g) & torch.isfinite(w)
+            if bool(fin.any()):
+                err = max(err, float((g[fin] - w[fin]).abs().max()))
+    return same, err
+
+
+def check_mesh_kernels(device):
+    """Each mesh kernel against its plain version, bit for bit, over the
+    case grid; returns per-kernel results at the level-0 shape."""
+    scene = mesh_torus(MW, MH)
+    ir = compile_scene(scene, dtype=torch.float32, device=device)
+    rt = build_statics(ir, scene.config)
+    m = rt.mesh
+    o, d = pixel_rays(scene, device)
+    # the level-0 shadow rays: from the shading points toward the light,
+    # dead lanes parked as the integrator parks them
+    comps = prepare_computations(ir, rt, o, d)
+    so, sd = neutralize_rays(
+        comps.over_point,
+        normalize(ir.light_points[0, 0][None] - comps.over_point),
+        comps.valid)
+    g = torch.Generator(device=device).manual_seed(2)
+    keep = mesh.pack_plane(torch.rand(ir.tri_p1.shape[0], generator=g,
+                                      device=device) < 0.5, False)
+    dead = torch.arange(o.shape[0], device=device) % 7 == 0
+    od = torch.where(dead[:, None], 1e30, o)
+    dd = torch.where(dead[:, None], 1.0, d)
+    rows = torch.cat([o, d], -1)               # strided (R, 3) views
+    m64 = mesh.MeshTables(m.tris.double(), m.box_min.double(),
+                          m.box_max.double(), m.rank, m.cast, None)
+    n = o.shape[0]
+    cases = [
+        ("closest f32", "closest", m, o, d, None),
+        ("closest f32 keep", "closest", m, o, d, keep),
+        ("closest ragged", "closest", m, o[:n - 333], d[:n - 333], None),
+        ("closest dead lanes", "closest", m, od, dd, None),
+        ("closest strided", "closest", m, rows[:, :3], rows[:, 3:], None),
+        ("closest f64", "closest", m64, o.double(), d.double(), None),
+        ("closest f64 keep", "closest", m64, o.double(), d.double(), keep),
+        ("shadow f32", "shadow", m, so, sd, None),
+        ("shadow ragged", "shadow", m, so[:n - 333], sd[:n - 333], None),
+        ("shadow f64", "shadow", m64, so.double(), sd.double(), None),
+    ]
+    sir, sorig, sdirs = build_soup(device)
+    smesh = mesh.pack(sir, torch.randperm(sir.tri_p1.shape[0], generator=g,
+                                          device=device),
+                      torch.rand(sir.tri_p1.shape[0], generator=g,
+                                 device=device) < 0.7)
+    cases += [("soup closest", "closest", smesh, sorig, sdirs, None),
+              ("soup shadow", "shadow", smesh, sorig, sdirs, None)]
+    fns = {"closest": (mesh.closest_cuda, mesh.closest_plain),
+           "shadow": (mesh.shadow_cuda, mesh.shadow_plain)}
+    err = {"closest": 0.0, "shadow": 0.0}
+    for name, kind, mm, oo, dd_, kp in cases:
+        kern, plain = fns[kind]
+        args = (mm, oo, dd_) + ((kp,) if kind == "closest" else ())
+        got = kern(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        same, e = _equal_outputs(got, want)
+        hits = int(torch.isfinite(want[0] if kind == "closest"
+                                  else want[1]).sum())
+        err[kind] = max(err[kind], e)
+        log("mesh-kernels", f"{name}: rays={oo.shape[0]} "
+            f"triangles={mm.tris.shape[1] * mesh.SC} {oo.dtype} hits={hits} "
+            f"equal={same}")
+        if not same:
+            raise AssertionError(f"mesh kernel != plain in case {name}")
+
+    out = {}
+    # aux bytes per triangle: the shadow query reads rank (4) and cast (1)
+    for kind, (mm, oo, dd_, aux), label in (
+            ("closest", (m, o, d, 0), "level 0"),
+            ("shadow", (m, so, sd, 5), "level 0"),
+            ("soup closest", (smesh, sorig, sdirs, 0), "512k soup"),
+            ("soup shadow", (smesh, sorig, sdirs, 5), "512k soup")):
+        kern, plain = fns[kind.split()[-1]]
+        ms = median_ms(lambda: kern(mm, oo, dd_), reps=20)
+        plain_ms = median_ms(lambda: plain(mm, oo, dd_), reps=3)
+        bound, by, ops = mesh_bound(mm, oo, dd_, aux)
+        log("mesh-kernels", f"{kind} {label} ({oo.shape[0]} rays x "
+            f"{mm.tris.shape[1] * mesh.SC} triangles): kernel {ms:.3f} ms "
+            f"(median of 20), plain {plain_ms:.3f} ms (median of 3); bound "
+            f"{bound:.4f} ms by {by} ({ops:.4g} float32 operations)")
+        if kind in err:
+            out[kind] = {"max_abs_err": err[kind], "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound,
+                         "bound_by": by, "library_ms": None}
+    return out
+
+
+def check_mesh_strip(device, glass):
+    """600x16 strip: the kernel frame against the plain-mesh frame, and
+    trace_bucketed against the unrolled trace, bit for bit."""
+    scene = mesh_torus(MW, MH, glass=glass)
+    ir = compile_scene(scene, dtype=torch.float32, device=device)
+    rt = build_statics(ir, scene.config)
+    depth = scene.config.di_path_length
+    o, d = pixel_rays(scene, device, rows=(MH // 2 - 8, MH // 2 + 8))
+    counts = torch.stack(spawn_counts(ir, rt, o, d, depth)).tolist()
+    buckets = [max(64, -(-int(c * 1.25) // 64) * 64) for c in counts]
+    got, ovf = trace_bucketed(ir, rt, o, d, depth, buckets)
+    with plain_mesh():
+        plain, ovf_p = trace_bucketed(ir, rt, o, d, depth, buckets)
+    exact = trace(ir, rt, o, d, depth)
+    same_p = all(torch.equal(x, y) for x, y in zip(got, plain))
+    same_e = all(torch.equal(x, y) for x, y in zip(got, exact))
+    log("mesh-equal", f"{MW}x16 strip {'glass' if glass else 'opaque'}: "
+        f"kernel vs plain-mesh bitwise={same_p}, trace_bucketed vs trace "
+        f"bitwise={same_e}, overflow={bool(ovf) or bool(ovf_p)} "
+        f"buckets={buckets}")
+    if bool(ovf) or bool(ovf_p) or not (same_p and same_e):
+        raise AssertionError("mesh strip differs")
+
+
+def render_mesh(device, reps):
+    """The mesh main path, counted: every kernel must launch."""
+    scene = mesh_torus(MW, MH)
+    for counts in (compact.LAUNCHES, mesh.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    stats = {}
+    canvas, cold = frame(device, stats=stats, scene=scene)
+    launches = {**compact.LAUNCHES, **mesh.LAUNCHES}
+    log("mesh-render", f"{MW}x{MH} depth 5 float32: launches {launches}, "
+        f"buckets "
+        f"{stats['buckets']}, escalations {stats['escalations']}, exact "
+        f"chunks {stats['exact_chunks']}, first call {cold:.3f} s")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the mesh path never ran: "
+                             f"{launches}")
+    if stats["escalations"] or stats["exact_chunks"]:
+        raise AssertionError("bucket overflow after calibration")
+    if canvas.shape != (MH, MW, 3) or not np.isfinite(canvas).all():
+        raise AssertionError("mesh canvas not finite or of the wrong shape")
+    walls = [frame(device, scene=scene)[1] for _ in range(reps)]
+    wall = statistics.median(walls)
+    # the host's share of the wall: compile_scene runs in every frame
+    compiles = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        ir = compile_scene(scene, dtype=torch.float32, device=device)
+        torch.cuda.synchronize()
+        compiles.append(time.perf_counter() - t0)
+    # traced rays: the primary rays and every spawned child, each with one
+    # shadow ray per light (the probe's exact per-level counts)
+    rt = build_statics(ir, scene.config)
+    o, d = pixel_rays(scene, device)
+    spawned = torch.stack(spawn_counts(ir, rt, o, d,
+                                       scene.config.di_path_length)).tolist()
+    traced = (MW * MH + sum(spawned)) * (1 + ir.meta.n_lights)
+    log("mesh-render", f"warm wall {wall:.4f} s (median of {walls}), "
+        f"{MW * MH / wall:.4g} pixels/s, {traced / wall:.4g} traced rays/s "
+        f"({traced} rays: spawn counts {spawned}, one shadow ray per lane); "
+        f"compile_scene alone {statistics.median(compiles):.4f} s (median "
+        f"of {compiles})")
+    return canvas, launches, wall
+
+
+def profile_to(path, device, b0, card, wall, mesh_wall):
     """Per-kernel device times of the level-0 compaction calls (20 each)
-    and of one warm frame, with the frame's device-busy share."""
+    and of one warm frame of each render, with its device-busy share."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     g = torch.Generator(device=device).manual_seed(1)
@@ -207,6 +494,8 @@ def profile_to(path, device, b0, card, wall):
         torch.cuda.synchronize()
     with profile(activities=acts) as fprof:
         _, t = frame(device)
+    with profile(activities=acts) as mprof:
+        _, mt = frame(device, scene=mesh_torus(MW, MH))
 
     def device_us(prof):
         # device-side rows only (kernels, copies): an aten op's row repeats
@@ -218,6 +507,7 @@ def profile_to(path, device, b0, card, wall):
                    if e.device_type == DeviceType.CUDA)
 
     busy = device_us(fprof) / 1e6
+    mbusy = device_us(mprof) / 1e6
     with open(path, "w") as f:
         f.write(f"{card}\n\n== level-0 calls, 20 each: N={n} B={b0} "
                 f"p=0.5 ==\n")
@@ -228,17 +518,24 @@ def profile_to(path, device, b0, card, wall):
                 f"s -> device idle share {1 - busy / wall:.3f} ==\n")
         f.write(fprof.key_averages().table(sort_by="self_cuda_time_total",
                                            row_limit=40))
+        f.write(f"\n\n== one warm {MW}x{MH} mesh_torus frame: profiled wall "
+                f"{mt:.4f} s, device busy {mbusy:.4f} s; unprofiled warm "
+                f"wall {mesh_wall:.4f} s -> device idle share "
+                f"{1 - mbusy / mesh_wall:.3f} ==\n")
+        f.write(mprof.key_averages().table(sort_by="self_cuda_time_total",
+                                           row_limit=40))
     log("profile", f"frame device busy {busy:.4f} s of warm wall {wall:.4f} "
-        f"s; tables in {path}")
+        f"s; mesh frame {mbusy:.4f} s of {mesh_wall:.4f} s; tables in {path}")
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=3,
-                    help="warm frames timed per compaction (median)")
+                    help="warm frames timed per render (median)")
     ap.add_argument("--profile", default=None,
                     help="write torch.profiler's per-kernel tables of the "
-                    "level-0 compaction calls and one warm frame here")
+                    "level-0 compaction calls and one warm frame of each "
+                    "render here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -256,10 +553,16 @@ def main():
     log("device", f"{kind}; nvidia-smi: {smi}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
-    # 2. build
+    # 2. build: both sources, the two nvcc runs at once
     t0 = time.perf_counter()
-    so = compact.build()
-    log("build", f"{os.path.relpath(so)} in {time.perf_counter() - t0:.2f} s")
+    libs = _build.build(*_build.CUDA_SOURCES)
+    log("build", ", ".join(os.path.relpath(p) for p in libs.values())
+        + f" in {time.perf_counter() - t0:.2f} s")
+    for name, so in libs.items():
+        report = so.with_name(so.name + ".log").read_text().splitlines()
+        for line in report:
+            if "registers" in line or "spill" in line:
+                log("build", f"{name}: {line.strip()}")
 
     # 3. kernels at the level-0 shape, B from the calibration
     scene = glass_spheres(W, H)
@@ -272,7 +575,7 @@ def main():
     log("kernels", f"level spawn counts {counts}; level-0 bucket B={b0}")
     kstats = check_kernels(device, W * H, b0)
 
-    # 4. render: the main path, counted
+    # 4. render: the flagship path, counted
     compact.LAUNCHES.update(compact=0, expand=0)
     stats = {}
     canvas, cold = frame(device, stats=stats)
@@ -314,17 +617,47 @@ def main():
         f.write(ppm)
     log("output", f"{path} sha256 {hashlib.sha256(ppm).hexdigest()}")
 
+    # 7. mesh kernels against their plain versions
+    mstats = check_mesh_kernels(device)
+
+    # 8. mesh render: the mesh path, counted
+    mcanvas, mlaunches, mesh_wall = render_mesh(device, args.reps)
+
+    # 9. mesh equality on the card
+    for glass in (False, True):
+        check_mesh_strip(device, glass)
+
+    # 10. mesh output
+    ppm = construct_ppm(mcanvas)
+    path = os.path.join(tempfile.gettempdir(), f"frt_mesh_torus_{MW}x{MH}.ppm")
+    with open(path, "wb") as f:
+        f.write(ppm)
+    log("mesh-output", f"{path} sha256 {hashlib.sha256(ppm).hexdigest()}")
+
     if args.profile:
-        profile_to(args.profile, device, b0, f"{kind}; {smi}", wall)
+        profile_to(args.profile, device, b0, f"{kind}; {smi}", wall,
+                   mesh_wall)
 
     rows = []
-    for name, key, line in (("compact_rows", "compact", 132),
-                            ("expand_rows", "expand", 247)):
-        e, ms, plain_ms = kstats[key]
-        rows.append({"name": name, "route": "cuda", "source": SRC,
-                     "replaces": "fast_ray_tracer_tpu/ops/compact_pallas.py:"
-                     f"{line}", "launches": launches[key], "max_abs_err": e,
-                     "ms": ms, "plain_ms": plain_ms})
+    for name, key, replaces, src, count in (
+            ("compact_rows", "compact",
+             "fast_ray_tracer_tpu/ops/compact_pallas.py:132", SRC,
+             launches["compact"]),
+            ("expand_rows", "expand",
+             "fast_ray_tracer_tpu/ops/compact_pallas.py:247", SRC,
+             launches["expand"])):
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": count,
+                     **kstats[key]})
+    for name, key, replaces in (
+            ("mesh_closest", "closest",
+             "fast_ray_tracer_tpu/ops/mesh_pallas.py:262"),
+            ("mesh_shadow", "shadow",
+             "fast_ray_tracer_tpu/ops/mesh_pallas.py:287")):
+        rows.append({"name": name, "route": "cuda", "source": MESH_SRC,
+                     "replaces": replaces,
+                     "launches": mlaunches[f"mesh_{key}"], **mstats[key]})
+    print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

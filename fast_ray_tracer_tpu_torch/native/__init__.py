@@ -1,0 +1,198 @@
+"""Host C++ for the large walks of the scene compiler (ctypes).
+
+The port's copy of the JAX package's `native/`: the OBJ line scan
+(`obj_core.cpp`) and the BVH-divide simulation that yields the shadow-walk
+ranks (`divide_core.cpp`). A 141k-triangle mesh makes the Python divide
+walk take many seconds, and it runs inside every `compile_scene`, so the
+compiler always takes the C++ walks. `_build.py` builds them with g++ into
+build/native/ at first use; a failed build raises.
+
+The Python walks stay as the reference the C++ is held to, bit for bit:
+`scene/divide.shadow_ranks_python` and `scene/obj_loader._scan_obj_python`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import sys
+
+import numpy as np
+
+from fast_ray_tracer_tpu_torch import _build
+
+_lib = None
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = _build.load("native")
+        lib.frt_obj_load.restype = ctypes.c_void_p
+        lib.frt_obj_load.argtypes = [ctypes.c_char_p]
+        lib.frt_obj_counts.restype = None
+        lib.frt_obj_counts.argtypes = [ctypes.c_void_p,
+                                       ctypes.POINTER(ctypes.c_int64)]
+        lib.frt_obj_fill.restype = None
+        lib.frt_obj_free.argtypes = [ctypes.c_void_p]
+        lib.frt_shadow_ranks.restype = ctypes.c_int64
+        _lib = lib
+    return _lib
+
+
+class ObjGeometry:
+    """Raw OBJ parse result (indices are 1-based, 0 = absent); the layout
+    of scene/obj_loader._Geometry."""
+
+    def __init__(self, v, vt, vn, tri, flags, group, event,
+                 group_names, events):
+        self.v = v                    # (nv, 3) float64
+        self.vt = vt                  # (nvt, 3)
+        self.vn = vn                  # (nvn, 3)
+        self.tri = tri                # (ntri, 3, 3) int32: [corner][v,t,n]
+        self.use_n = flags[:, 0].astype(bool)
+        self.use_t = flags[:, 1].astype(bool)
+        self.group = group            # (ntri,) group index
+        self.event = event            # (ntri,) events-seen count
+        self.group_names = group_names  # list[str], [0] = default group
+        self.events = events          # list[("m"|"u", arg)] in file order
+
+
+def parse_obj(path: str) -> ObjGeometry:
+    """Scan an OBJ file with the C++ core."""
+    lib = _load()
+    h = lib.frt_obj_load(path.encode())
+    if not h:
+        raise FileNotFoundError(path)
+    try:
+        counts = (ctypes.c_int64 * 6)()
+        lib.frt_obj_counts(h, counts)
+        nv, nvt, nvn, ntri, glen, elen = (int(c) for c in counts)
+        v = np.empty((nv, 3), np.float64)
+        vt = np.empty((nvt, 3), np.float64)
+        vn = np.empty((nvn, 3), np.float64)
+        tri = np.empty((ntri, 3, 3), np.int32)
+        flags = np.empty((ntri, 2), np.int32)
+        group = np.empty((ntri,), np.int32)
+        event = np.empty((ntri,), np.int32)
+        gbuf = ctypes.create_string_buffer(glen)
+        ebuf = ctypes.create_string_buffer(elen)
+
+        def ptr(a, ty):
+            if a.size == 0:
+                return ty()          # null pointer of the right type
+            return a.ctypes.data_as(ty)
+
+        dp = ctypes.POINTER(ctypes.c_double)
+        ip = ctypes.POINTER(ctypes.c_int32)
+        lib.frt_obj_fill(ctypes.c_void_p(h), ptr(v, dp), ptr(vt, dp),
+                         ptr(vn, dp), ptr(tri, ip), ptr(flags, ip),
+                         ptr(group, ip), ptr(event, ip), gbuf, ebuf)
+        group_names = gbuf.raw[:glen].decode().split("\n") if glen else \
+            ["##default_group"]
+        events = []
+        if elen:
+            for line in ebuf.raw[:elen].decode().split("\n"):
+                events.append((line[0], line[2:]))
+        return ObjGeometry(v, vt, vn, tri, flags, group, event,
+                           group_names, events)
+    finally:
+        lib.frt_obj_free(h)
+
+
+def shadow_ranks(root, threshold: int, n_leaves: int):
+    """frt_shadow_ranks over a serialized divide-sim Node tree
+    (scene/divide.py): rank[leaf_id] = post-divide DFS visit position.
+    Raises on an inconsistent tree (the Python walk's assert)."""
+    lib = _load()
+
+    INF = float("inf")
+    IDENT = np.asarray([1.0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1])
+    NOBOX = np.asarray([INF, INF, INF, -INF, -INF, -INF])
+
+    # chunked columns: scalar nodes buffer into lists, leafblocks append
+    # whole numpy chunks — no per-triangle Python work for big meshes
+    kind_ch, tf_ch, leaf_ch, box_ch, nch_ch, ci_ch = [], [], [], [], [], []
+    buf = {"kind": [], "tf": [], "leaf": [], "box": [], "nch": []}
+    count = 0
+
+    def flush():
+        if not buf["kind"]:
+            return
+        kind_ch.append(np.asarray(buf["kind"], np.int8))
+        tf_ch.append(np.concatenate(buf["tf"]))
+        leaf_ch.append(np.asarray(buf["leaf"], np.int32))
+        box_ch.append(np.concatenate(buf["box"]))
+        nch_ch.append(np.asarray(buf["nch"], np.int32))
+        for v in buf.values():
+            v.clear()
+
+    def alloc_scalar(k, tf, leaf, box, nch) -> int:
+        nonlocal count
+        buf["kind"].append(k)
+        buf["tf"].append(np.asarray(tf, np.float64))
+        buf["leaf"].append(leaf)
+        buf["box"].append(box)
+        buf["nch"].append(nch)
+        count += 1
+        return count - 1
+
+    def emit(node) -> int:
+        nonlocal count
+        if node.kind == "group":
+            ch = []
+            for c in node.children:
+                if c.kind == "leafblock":
+                    nb = len(c.block_ids)
+                    # expand the block as nb leaf nodes in one chunk
+                    flush()
+                    base = count
+                    kind_ch.append(np.full(nb, 2, np.int8))
+                    tf_ch.append(np.tile(IDENT, nb))
+                    leaf_ch.append(np.asarray(c.block_ids, np.int32))
+                    box_ch.append(np.asarray(c.block_boxes,
+                                             np.float64).reshape(-1))
+                    nch_ch.append(np.zeros(nb, np.int32))
+                    count += nb
+                    ch.append(np.arange(base, base + nb, dtype=np.int32))
+                else:
+                    ch.append(np.asarray([emit(c)], np.int32))
+            idx = alloc_scalar(0, node.transform, node.leaf_id, NOBOX,
+                               sum(len(e) for e in ch))
+            ci_ch.append((idx, np.concatenate(ch) if ch
+                          else np.zeros(0, np.int32)))
+            return idx
+        box = NOBOX if node.obj_box is None else np.asarray(
+            list(node.obj_box.min) + list(node.obj_box.max), np.float64)
+        return alloc_scalar(2, node.transform, node.leaf_id, box, 0)
+
+    old_limit = sys.getrecursionlimit()
+    sys.setrecursionlimit(max(old_limit, 100000))
+    try:
+        root_idx = emit(root)
+    finally:
+        sys.setrecursionlimit(old_limit)
+    flush()
+
+    kind_a = np.ascontiguousarray(np.concatenate(kind_ch))
+    tf_a = np.ascontiguousarray(np.concatenate(tf_ch))
+    leaf_a = np.ascontiguousarray(np.concatenate(leaf_ch))
+    box_a = np.ascontiguousarray(np.concatenate(box_ch))
+    nch_a = np.ascontiguousarray(np.concatenate(nch_ch))
+    # child lists must be laid out in node-index order
+    ci_ch.sort(key=lambda e: e[0])
+    ci_a = np.ascontiguousarray(np.concatenate(
+        [e[1] for e in ci_ch])) if ci_ch else np.zeros(1, np.int32)
+    out = np.empty(n_leaves, np.int32)
+    rc = lib.frt_shadow_ranks(
+        ctypes.c_int64(count), ctypes.c_int64(root_idx),
+        kind_a.ctypes.data_as(ctypes.POINTER(ctypes.c_int8)),
+        tf_a.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        leaf_a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        box_a.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        nch_a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        ci_a.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        ctypes.c_int64(threshold), ctypes.c_int64(n_leaves),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
+    if rc != 0:
+        raise AssertionError("leaf ids inconsistent (native divide)")
+    return [int(x) for x in out]

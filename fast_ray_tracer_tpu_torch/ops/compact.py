@@ -10,27 +10,19 @@ out[i] = act[i] ? child[cumsum(act)[i] - 1] : 0, giving (N, C) from
 On a CUDA tensor both launch the hand-written kernels of
 `csrc/compact.cu` (replacing the TPU kernels `_compact_kernel` and
 `_expand_kernel` of fast_ray_tracer_tpu/ops/compact_pallas.py), built on
-first use with nvcc into build/kernels/ and loaded with ctypes; a kernel
-that cannot be built or launched raises. On a CPU tensor they take the
-plain torch versions below, which are also the reference the kernels are
-held to. `LAUNCHES` counts kernel launches per operation.
+first use with nvcc into build/kernels/ (`_build.py`) and loaded with
+ctypes; a kernel that cannot be built or launched raises. On a CPU tensor
+they take the plain torch versions below, which are also the reference
+the kernels are held to. `LAUNCHES` counts kernel launches per operation.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 
-_CSRC = Path(__file__).resolve().parents[1] / "csrc" / "compact.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+from fast_ray_tracer_tpu_torch import _build
 
 # kernel launches per operation since the last reset (a plain int each)
 LAUNCHES = {"compact": 0, "expand": 0}
@@ -65,39 +57,10 @@ def expand_rows_plain(child, act):
 # the CUDA kernels
 # ---------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the compaction kernels need the "
-                       "CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
-
-
-def build() -> Path:
-    """Build csrc/compact.cu into build/kernels/ unless a library of the
-    same source and flags is already there; return its path."""
-    digest = hashlib.sha256(
-        _CSRC.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = _BUILD_DIR / f"libfrt_compact_{digest}.so"
-    if so.exists():
-        return so
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_CSRC} (exit {proc.returncode}):"
-                           f"\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)
-    return so
-
-
 def _load():
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+        lib = _build.load("compact")
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         for name in ("frt_compact_f32", "frt_compact_f64"):
             fn = getattr(lib, name)

@@ -3,14 +3,16 @@
 Each primitive type block is intersected as one dense batched computation
 over (rays x prims); hits reduce with masked min. Every analytic primitive
 contributes its type's maximum intersection count of t-slots (sphere 2,
-plane 1); misses are +inf, and the slot-to-primitive map is static per
-scene (`slot_tables`).
+plane 1), and a mesh too small to be clustered (under 2048 triangles) one
+slot per triangle; misses are +inf, and the slot-to-primitive map is
+static per scene (`slot_tables`). Clustered meshes are queried apart from
+these slots, through ops/mesh.py.
 
-Arithmetic is written term by term (ops/vec.py), so a lane's result
-does not depend on the batch it is traced in.
+Arithmetic is written term by term (ops/vec.py, ops/mesh.py), so a lane's
+result does not depend on the batch it is traced in.
 
-This slice intersects spheres and planes; the other analytic shapes come
-in a later slice and raise NotImplementedError here.
+The port intersects spheres, planes and triangles; the other analytic
+shapes come in a later slice and raise NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -21,12 +23,14 @@ import numpy as np
 import torch
 
 from fast_ray_tracer_tpu_torch.constants import EPSILON
+from fast_ray_tracer_tpu_torch.ops.mesh import moller_trumbore
 from fast_ray_tracer_tpu_torch.ops.vec import dot3
 from fast_ray_tracer_tpu_torch.scene import ir as IR
 from fast_ray_tracer_tpu_torch.scene.ir import SceneIR
 
 _PORTED_TYPES = (IR.SPHERE, IR.PLANE)
 _INT32_MAX = 2**31 - 1
+_DEAD_ORIGIN = 1e30   # dead-lane sentinel: misses every cluster AABB
 
 
 def check_ported_types(meta) -> None:
@@ -37,14 +41,19 @@ def check_ported_types(meta) -> None:
 
 
 def slot_tables(meta) -> np.ndarray:
-    """Static slot -> global-prim-index map over the analytic blocks."""
+    """Static slot -> global-prim-index map: the analytic blocks, plus one
+    slot per triangle when the mesh is small (not clustered)."""
     ids = []
     for typ, start, count in meta.type_ranges:
         k = IR.TYPE_MAX_HITS[typ]
         for p in range(start, start + count):
             ids.extend([p] * k)
+    if not meta.use_clusters:
+        ids.extend(range(meta.n_analytic, meta.n_analytic + meta.n_triangles))
     if not ids:
-        ids = [0]     # one dead slot keeps slot-indexed gathers in range
+        # no analytic prims beside a clustered mesh: one dead slot (its t
+        # is always +inf) keeps slot-indexed gathers in range
+        ids = [0]
     return np.asarray(ids, dtype=np.int64)
 
 
@@ -76,6 +85,35 @@ def _plane_t(o, d):
     return torch.where(ok, t, torch.inf)[..., None]
 
 
+def _triangle_t(orig, dirs, p1, e1, e2):
+    """Möller-Trumbore (src/shapes/triangle.c:10-44), world space.
+    orig/dirs: (R, 3); p1/e1/e2: (N, 3) -> t (R, N), +inf where the ray
+    misses."""
+    t, _, _, ok = moller_trumbore(
+        [orig[:, k:k + 1] for k in range(3)],
+        [dirs[:, k:k + 1] for k in range(3)],
+        [a[None, :, k] for a in (p1, e1, e2) for k in range(3)])
+    return torch.where(ok, t, torch.inf)
+
+
+def triangle_uv_at(ir: SceneIR, tri_idx, orig, dirs):
+    """Barycentric (u, v) of triangle tri_idx (R,) along each ray."""
+    comp = [ir.tri_p1[tri_idx], ir.tri_e1[tri_idx], ir.tri_e2[tri_idx]]
+    _, u, v, _ = moller_trumbore(
+        [orig[:, k] for k in range(3)], [dirs[:, k] for k in range(3)],
+        [a[:, k] for a in comp for k in range(3)])
+    return u, v
+
+
+def neutralize_rays(orig, dirs, active):
+    """Park inactive lanes far outside every cluster AABB, pointing away,
+    so the mesh queries skip them (their shading contribution is masked
+    anyway)."""
+    a = active[:, None]
+    return (torch.where(a, orig, _DEAD_ORIGIN),
+            torch.where(a, dirs, 1.0))
+
+
 def intersect_candidates(ir: SceneIR, orig, dirs) -> torch.Tensor:
     """All candidate hit t values: (R, H), +inf for misses.
 
@@ -94,6 +132,9 @@ def intersect_candidates(ir: SceneIR, orig, dirs) -> torch.Tensor:
         d = dot3(lin, db)
         t = _sphere_t(o, d) if typ == IR.SPHERE else _plane_t(o, d)
         parts.append(t.reshape(t.shape[0], -1))
+    if meta.n_triangles and not meta.use_clusters:
+        parts.append(_triangle_t(orig, dirs, ir.tri_p1, ir.tri_e1,
+                                 ir.tri_e2))
     if not parts:
         return torch.full((orig.shape[0], 1), torch.inf, dtype=orig.dtype,
                           device=orig.device)
@@ -118,13 +159,17 @@ def closest_hit(t_cand, slot_prim, mask=None) -> Hit:
     return Hit(valid=torch.isfinite(tbest), t=tbest, prim=prim)
 
 
-def containers_n1_n2(meta, t_cand, t_hit, prim_ni):
+def containers_n1_n2(meta, t_cand, t_hit, prim_ni, with_entry_t=False):
     """Sort-free "containers" walk (renderer.c:406-447) over the dense
     candidate slots: an object is in the containers iff it has an odd
     number of entries before the hit (exclusive for n1, inclusive for n2),
     and n1/n2 is the Ni of the inside object whose latest entry is last in
     walk order (t, then slot). A primitive's slots are contiguous and
-    static, so per-prim counts and last entries are reshape reductions."""
+    static, so per-prim counts and last entries are reshape reductions.
+
+    with_entry_t=True also returns each walk's latest included entry t
+    (-inf when no object is inside), for the merge with the clustered
+    mesh's walk (ops/mesh.containers)."""
     R, H = t_cand.shape
     dev = t_cand.device
     valid = torch.isfinite(t_cand)
@@ -135,13 +180,16 @@ def containers_n1_n2(meta, t_cand, t_hit, prim_ni):
     before2 = before1 | (is_hit & (slot_idx[None] == hit_slot[:, None]))
 
     # static per-block layout (offset, count, k); the blocks cover the
-    # analytic prims 0..Na-1 in order, so prim_ni is already per column
+    # analytic prims 0..Na-1 and then any dense triangles in order, so
+    # prim_ni is already per column
     blocks = []
     off = 0
     for typ, start, count in meta.type_ranges:
         k = IR.TYPE_MAX_HITS[typ]
         blocks.append((off, count, k))
         off += count * k
+    if meta.n_triangles and not meta.use_clusters:
+        blocks.append((off, meta.n_triangles, 1))
     neg_inf = -torch.inf
 
     def solve(before):
@@ -165,9 +213,13 @@ def containers_n1_n2(meta, t_cand, t_hit, prim_ni):
         best_score, best = score.max(-1)
         any_in = best_score >= 0
         ni = prim_ni[best]
-        return torch.where(any_in, ni, torch.ones_like(ni))
+        return (torch.where(any_in, ni, torch.ones_like(ni)),
+                torch.where(any_in, m, neg_inf))
 
-    return solve(before1), solve(before2)
+    (n1, m1), (n2, m2) = solve(before1), solve(before2)
+    if with_entry_t:
+        return n1, n2, m1, m2
+    return n1, n2
 
 
 def shadow_hit_early_exit(t_cand, slot_rank, slot_shadow_mask, dist):

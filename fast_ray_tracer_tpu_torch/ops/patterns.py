@@ -13,7 +13,7 @@ scene; any other kind present in a scene raises NotImplementedError.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -22,25 +22,54 @@ from fast_ray_tracer_tpu_torch.scene import ir as IR
 from fast_ray_tracer_tpu_torch.scene.ir import SceneIR
 
 _PORTED_KINDS = {IR.PAT_CHECKER, IR.PAT_STRIPE}
+SHAPE_TRIANGLE = 6   # shape_type value for triangles in ShapeCtx
 
 
 class ShapeCtx(NamedTuple):
-    """Per-shading-point shape data the pattern and normal code needs
-    (analytic primitives; the triangle fields come with the mesh slice)."""
-    obj_inv: torch.Tensor     # (R,4,4) world->object
-    shape_type: torch.Tensor  # (R,) int64 analytic type id
+    """Per-shading-point shape data the pattern and normal code needs. The
+    triangle fields serve the triangle uv map; they are None in a scene
+    without triangles."""
+    obj_inv: torch.Tensor     # (R,4,4) world->object (identity: triangle)
+    shape_type: torch.Tensor  # (R,) int64: 0..5 analytic type, 6 triangle
     params: torch.Tensor      # (R,4) cylinder/cone min,max / toroid r1,r2
+    tri_p1: Optional[torch.Tensor] = None     # (R,3)
+    tri_e1: Optional[torch.Tensor] = None
+    tri_e2: Optional[torch.Tensor] = None
+    tri_t1: Optional[torch.Tensor] = None     # (R,2)
+    tri_t2: Optional[torch.Tensor] = None
+    tri_t3: Optional[torch.Tensor] = None
+    tri_use_tex: Optional[torch.Tensor] = None  # (R,) bool
 
 
 def build_shape_ctx(ir: SceneIR, prim) -> ShapeCtx:
-    a_idx = prim.clamp(0, max(ir.meta.n_analytic - 1, 0))
+    meta = ir.meta
+    na, nt = meta.n_analytic, meta.n_triangles
+    a_idx = prim.clamp(0, max(na - 1, 0))
     # static type per prim from the block layout (no host table to copy)
     stype = torch.zeros_like(a_idx)
-    for typ, start, count in ir.meta.type_ranges:
+    for typ, start, count in meta.type_ranges:
         stype = torch.where((a_idx >= start) & (a_idx < start + count),
                             typ, stype)
-    return ShapeCtx(obj_inv=ir.inv_tf[a_idx], shape_type=stype,
-                    params=ir.prim_params[a_idx])
+    if not nt:
+        return ShapeCtx(obj_inv=ir.inv_tf[a_idx], shape_type=stype,
+                        params=ir.prim_params[a_idx])
+    is_tri = prim >= na
+    t_idx = (prim - na).clamp(0, nt - 1)
+    eye = torch.eye(4, dtype=ir.inv_tf.dtype, device=prim.device)
+    if na:
+        obj_inv = torch.where(is_tri[:, None, None], eye, ir.inv_tf[a_idx])
+        params = torch.where(is_tri[:, None], 0.0, ir.prim_params[a_idx])
+    else:
+        obj_inv = eye.expand(prim.shape[0], 4, 4)
+        params = torch.zeros((prim.shape[0], 4), dtype=eye.dtype,
+                             device=prim.device)
+    return ShapeCtx(
+        obj_inv=obj_inv, shape_type=torch.where(is_tri, SHAPE_TRIANGLE, stype),
+        params=params,
+        tri_p1=ir.tri_p1[t_idx], tri_e1=ir.tri_e1[t_idx],
+        tri_e2=ir.tri_e2[t_idx], tri_t1=ir.tri_t1[t_idx],
+        tri_t2=ir.tri_t2[t_idx], tri_t3=ir.tri_t3[t_idx],
+        tri_use_tex=ir.tri_use_tex[t_idx])
 
 
 def _cmod2(t):

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from fast_ray_tracer_tpu_torch.ops.vec import dot3, xform_points
+from fast_ray_tracer_tpu_torch.scene.ir import default_device
 from fast_ray_tracer_tpu_torch.scene.model import CameraDesc
 
 POINT_LIKE_APERTURES = ("POINT_APERTURE", "HEXAGONAL_APERTURE",
@@ -57,7 +58,9 @@ def view_transform_np(frm, to, up):
 
 
 def build_camera(cam: CameraDesc, dtype=torch.float32,
-                 device="cpu") -> CameraRT:
+                 device=None) -> CameraRT:
+    """The camera's runtime constants; `inv` on `device` (default: the
+    CUDA card)."""
     half_view = cam.focal_length * math.tan(cam.field_of_view * 0.5)
     aspect = cam.width / cam.height
     if aspect >= 1.0:
@@ -67,7 +70,8 @@ def build_camera(cam: CameraDesc, dtype=torch.float32,
     pixel_size = half_width * 2.0 / cam.width
     inv = np.linalg.inv(view_transform_np(cam.frm, cam.to, cam.up))
     return CameraRT(
-        inv=torch.as_tensor(inv).to(device=device, dtype=dtype),
+        inv=torch.as_tensor(inv).to(device=default_device(device),
+                                    dtype=dtype),
         pixel_size=pixel_size,
         half_width=half_width, half_height=half_height,
         canvas_distance=cam.focal_length,

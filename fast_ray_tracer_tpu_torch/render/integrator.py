@@ -8,9 +8,10 @@ children into a static bucket of B lanes on the device. Ambient, diffuse
 and specular accumulate in separate channels through the recursion and
 the final pixel is (A + D + S) / 3 (renderer.c:226-230, color.h:24-26).
 
-The stream compaction of `trace_bucketed` runs in hand-written CUDA
-kernels on the card (ops/compact.py); on the CPU it takes their plain
-torch versions.
+The stream compaction of `trace_bucketed` and the closest-hit and shadow
+queries of clustered meshes run in hand-written CUDA kernels on the card
+(ops/compact.py, ops/mesh.py); on the CPU they take their plain torch
+versions.
 """
 
 from __future__ import annotations
@@ -22,10 +23,11 @@ import numpy as np
 import torch
 
 from fast_ray_tracer_tpu_torch.constants import EPSILON
-from fast_ray_tracer_tpu_torch.ops import compact
+from fast_ray_tracer_tpu_torch.ops import compact, mesh
 from fast_ray_tracer_tpu_torch.ops.intersect import (
-    closest_hit, containers_n1_n2, intersect_candidates,
-    shadow_hit_early_exit, slot_tables,
+    Hit, closest_hit, containers_n1_n2, intersect_candidates,
+    neutralize_rays, shadow_components, shadow_hit_early_exit, slot_tables,
+    triangle_uv_at,
 )
 from fast_ray_tracer_tpu_torch.ops.patterns import (
     ShapeCtx, build_shape_ctx, eval_pattern,
@@ -68,33 +70,52 @@ class Triple(NamedTuple):
 
 
 class RenderStatics(NamedTuple):
-    """Per-scene derived tables, on the scene's device."""
+    """Per-scene derived tables, on the scene's device. With
+    meta.use_clusters the slot_* tables cover the analytic block only and
+    `mesh` holds the clustered mesh packed for its queries."""
     slot_prim: torch.Tensor      # (H,) int64 global prim per candidate slot
     prim_mat: torch.Tensor       # (N_prims,) int64 material per prim
     slot_shadow: torch.Tensor    # (H,) bool casts_shadow per slot
     slot_rank: torch.Tensor      # (H,) int64 shadow-walk rank per slot
     prim_ni: torch.Tensor        # (N_prims,) refractive index per prim
+    mesh: Optional[mesh.MeshTables]   # clustered mesh (use_clusters only)
     cfg: ConfigDesc
 
 
 def build_statics(ir: SceneIR, cfg: ConfigDesc) -> RenderStatics:
     meta = ir.meta
-    if meta.use_clusters or meta.n_triangles or meta.has_csg:
-        raise NotImplementedError("meshes and CSG are not ported yet")
+    if meta.has_csg:
+        raise NotImplementedError("CSG is not ported yet")
     slot_prim = torch.as_tensor(slot_tables(meta)).to(ir.inv_tf.device)
-    prim_mat = ir.material_id
+    prim_mat = torch.cat([ir.material_id, ir.tri_material_id])
+    packed = None
+    if meta.use_clusters:
+        tri_mat = ir.tri_material_id
+        packed = mesh.pack(
+            ir, tri_rank=ir.prim_shadow_rank[meta.n_analytic:],
+            tri_shadow=ir.mat_casts_shadow[tri_mat],
+            tri_ni=ir.mat_Ni[tri_mat] if meta.needs_hit_sort else None)
     return RenderStatics(
         slot_prim=slot_prim, prim_mat=prim_mat,
         slot_shadow=ir.mat_casts_shadow[prim_mat[slot_prim]],
         slot_rank=ir.prim_shadow_rank[slot_prim],
-        prim_ni=ir.mat_Ni[prim_mat], cfg=cfg)
+        prim_ni=ir.mat_Ni[prim_mat], mesh=packed, cfg=cfg)
 
 
 def closest_query(ir: SceneIR, rt: RenderStatics, orig, dirs):
-    """Nearest positive hit over the analytic prims.
+    """Nearest positive hit over the analytic prims and the mesh.
     Returns (Hit, t_cand) — t_cand feeds the containers walk."""
+    meta = ir.meta
     t_cand = intersect_candidates(ir, orig, dirs)
-    return closest_hit(t_cand, rt.slot_prim), t_cand
+    hit = closest_hit(t_cand, rt.slot_prim)
+    if not meta.use_clusters:
+        return hit, t_cand
+    t_m, idx_m = mesh.closest(rt.mesh, orig, dirs)
+    use_m = t_m < hit.t
+    return Hit(valid=hit.valid | torch.isfinite(t_m),
+               t=torch.where(use_m, t_m, hit.t),
+               prim=torch.where(use_m, idx_m + meta.n_analytic,
+                                hit.prim)), t_cand
 
 
 class Comps(NamedTuple):
@@ -136,18 +157,45 @@ def prepare_computations(ir: SceneIR, rt: RenderStatics, orig,
     ctx = build_shape_ctx(ir, prim)
     mat = rt.prim_mat[prim]
 
-    normalv = normal_at(ir, ctx, p)
+    # barycentric (u, v) of triangle hits, for the smooth normals
+    na = meta.n_analytic
+    if meta.n_triangles:
+        u, v = triangle_uv_at(ir, (prim - na).clamp(0, meta.n_triangles - 1),
+                              orig, dirs)
+        is_tri = prim >= na
+        u = torch.where(is_tri, u, 0.0)
+        v = torch.where(is_tri, v, 0.0)
+    else:
+        u = v = torch.zeros_like(t)
+
+    normalv = normal_at(ir, ctx, prim, p, u, v)
     inside = dot3(normalv, eyev) < 0.0
     normalv = torch.where(inside[:, None], -normalv, normalv)
     reflectv = dirs - normalv * (2.0 * dot3(dirs, normalv))[:, None]
     over_point = p + normalv * EPSILON
     under_point = p - normalv * EPSILON
 
-    if meta.needs_hit_sort:
-        n1, n2 = containers_n1_n2(meta, t_cand, hit.t, rt.prim_ni)
-    else:
+    if not meta.needs_hit_sort:
         n1 = torch.ones_like(t)
         n2 = torch.ones_like(t)
+    elif not meta.use_clusters:
+        n1, n2 = containers_n1_n2(meta, t_cand, hit.t, rt.prim_ni)
+    else:
+        # merge the dense-table walk with the clustered mesh's: the later
+        # included entry (larger t) is the containers' last object, so its
+        # Ni wins per walk (renderer.c:406-447)
+        neg = torch.full_like(t, -torch.inf)
+        if na:
+            dn1, dn2, dm1, dm2 = containers_n1_n2(
+                meta, t_cand, hit.t, rt.prim_ni, with_entry_t=True)
+        else:
+            dn1 = dn2 = torch.ones_like(t)
+            dm1 = dm2 = neg
+        hit_tri = torch.where(hit.valid & (prim >= na), prim - na, -1)
+        mt1, mn1, mt2, mn2 = mesh.containers(
+            rt.mesh, orig, dirs, torch.where(hit.valid, hit.t, neg), hit_tri)
+        n1 = torch.where(mt1 > dm1, mn1, dn1)
+        n2 = torch.where(mt2 > dm2, mn2, dn2)
 
     # material map sampling at over_point (renderer.c:449-494); slots with
     # no pattern anywhere in the scene skip the pattern evaluation
@@ -178,19 +226,31 @@ def prepare_computations(ir: SceneIR, rt: RenderStatics, orig,
 # shadows and direct lighting
 # ---------------------------------------------------------------------------
 
-def is_shadowed(ir: SceneIR, rt: RenderStatics, light_pts, p):
+def is_shadowed(ir: SceneIR, rt: RenderStatics, light_pts, p, active):
     """Batched is_shadowed (renderer.c:73-93). light_pts: (R,S,3), p: (R,3)
-    -> (R,S) bool."""
+    -> (R,S) bool. `active`: (R,) lanes whose result matters; on clustered
+    scenes the others are parked outside the scene, so the mesh query
+    skips them."""
     R, S, _ = light_pts.shape
     v = light_pts - p[:, None, :]
     dist = torch.sqrt(dot3(v, v))
     direction = v / dist[..., None].clamp(min=1e-30)
     o = p[:, None, :].expand(R, S, 3).reshape(R * S, 3)
     d = direction.reshape(R * S, 3)
+    if ir.meta.use_clusters:
+        o, d = neutralize_rays(
+            o, d, active[:, None].expand(R, S).reshape(R * S))
+    df = dist.reshape(R * S)
     t_cand = intersect_candidates(ir, o, d)
-    shadowed = shadow_hit_early_exit(t_cand, rt.slot_rank, rt.slot_shadow,
-                                     dist.reshape(R * S))
-    return shadowed.reshape(R, S)
+    if not ir.meta.use_clusters:
+        shadowed = shadow_hit_early_exit(t_cand, rt.slot_rank,
+                                         rt.slot_shadow, df)
+        return shadowed.reshape(R, S)
+    # the analytic and mesh early-exit components: the lower rank wins
+    a_rank, a_t = shadow_components(t_cand, rt.slot_rank, rt.slot_shadow)
+    m_rank, m_t = mesh.shadow(rt.mesh, o, d)
+    t = torch.where(m_rank < a_rank, m_t, a_t)
+    return (t < df).reshape(R, S)
 
 
 def _light_sample_points(ir: SceneIR, li: int, R: int):
@@ -275,7 +335,8 @@ def shade_direct(ir: SceneIR, rt: RenderStatics, comps: Comps) -> Triple:
     if rt.cfg.include_direct:
         for li in range(ir.meta.n_lights):
             pts = _light_sample_points(ir, li, R)
-            shadowed = is_shadowed(ir, rt, pts, comps.over_point)
+            shadowed = is_shadowed(ir, rt, pts, comps.over_point,
+                                   comps.valid)
             intensity = 1.0 - shadowed[:, 0].to(comps.p.dtype)
             surface = surface + lighting_microfacet(
                 ir, rt, comps, li, pts, intensity)
@@ -408,13 +469,22 @@ def trace(ir: SceneIR, rt: RenderStatics, orig, dirs, depth: int) -> Triple:
         levels.append((comps, direct))
         if lvl == depth or not (want_refl or want_refr):
             break
+        # on clustered scenes dead children are parked outside the scene,
+        # so the mesh queries skip them (their results are masked anyway)
         children_o, children_d = [], []
         if want_refl:
-            children_o.append(comps.over_point)
-            children_d.append(comps.reflectv)
+            o_c, d_c = comps.over_point, comps.reflectv
+            if ir.meta.use_clusters:
+                o_c, d_c = neutralize_rays(o_c, d_c,
+                                           comps.refl_flag & comps.valid)
+            children_o.append(o_c)
+            children_d.append(d_c)
         if want_refr:
-            children_o.append(comps.under_point)
-            children_d.append(refract_direction(comps))
+            o_c, d_c = comps.under_point, refract_direction(comps)
+            if ir.meta.use_clusters:
+                o_c, d_c = neutralize_rays(o_c, d_c, refract_active(comps))
+            children_o.append(o_c)
+            children_d.append(d_c)
         cur_o = torch.cat(children_o)
         cur_d = torch.cat(children_d)
 

@@ -27,6 +27,7 @@ from fast_ray_tracer_tpu_torch.render.integrator import (
 )
 from fast_ray_tracer_tpu_torch.sampling.cmj import cmj_points_static
 from fast_ray_tracer_tpu_torch.scene.compile import compile_scene
+from fast_ray_tracer_tpu_torch.scene.ir import default_device
 from fast_ray_tracer_tpu_torch.scene.model import SceneDesc
 
 
@@ -38,15 +39,15 @@ def quantize_buckets(counts, margin):
 
 
 def render_scene(scene: SceneDesc, dtype=torch.float32,
-                 chunk_pixels: int = 8192, device="cpu",
+                 chunk_pixels: int = 8192, device=None,
                  compaction: str = "auto",
                  stats: Optional[dict] = None) -> np.ndarray:
     """Render a scene to an (H, W, 3) float64 numpy canvas (linear,
-    pre-encode), on `device`.
+    pre-encode), on `device` (default: the CUDA card; the CPU only when
+    asked for).
 
-    Only deterministic scenes are in this slice: jittered cameras or
-    lights, shaped apertures, photon GI and meshes raise
-    NotImplementedError.
+    Only deterministic scenes are ported: jittered cameras or lights,
+    shaped apertures and photon GI raise NotImplementedError.
     `compaction="plain"` forces the plain torch compaction (for tests that
     hold the kernels against it). If `stats` is a dict, it receives the
     calibrated `buckets` and the counts of chunks that needed a bucket
@@ -56,6 +57,7 @@ def render_scene(scene: SceneDesc, dtype=torch.float32,
     if cfg.photon_count > 0 and (cfg.include_global or cfg.visualize_photon_map
                                  or cfg.visualize_soft_indirect):
         raise NotImplementedError("photon-mapped GI is not ported yet")
+    device = default_device(device)
     ir = compile_scene(scene, dtype=dtype, device=device)
     needs_rng = (cam.aperture.jitter
                  or any(info[3] for info in ir.meta.light_info))

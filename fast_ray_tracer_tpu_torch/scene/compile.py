@@ -1,31 +1,36 @@
 """Scene compiler: SceneDesc -> SceneIR tensors.
 
 The numpy table construction of the JAX package's `compile_scene`, for the
-scenes this slice renders: analytic primitives under any nesting of
-groups, materials, procedural patterns with their children, and point
-lights. Transform chains are composed and inverted on the host, group
-hierarchies dissolve into per-leaf world->object inverses, and the
-post-divide shadow-walk rank of every leaf is recovered by simulating the
-reference's BVH build (scene/divide.py). The tables are byte-identical to
-the JAX package's; only the final wrap differs: `SceneIR(...).to(device,
-dtype)`.
+scenes the port renders: analytic primitives under any nesting of groups,
+triangles and smooth triangles, OBJ meshes (scene/obj_loader.py), large
+meshes Morton-ordered into 64-triangle clusters, materials, procedural
+patterns with their children, and point lights. Transform chains are
+composed and inverted on the host, group hierarchies dissolve into
+per-leaf world->object inverses, triangles are pre-transformed to world
+space, and the post-divide shadow-walk rank of every leaf is recovered by
+simulating the reference's BVH build (scene/divide.py, through its C++
+copy in native/). The tables are byte-identical to the JAX package's;
+only the final wrap differs: `SceneIR(...).to(device, dtype)`.
 
-Not in this slice (each raises NotImplementedError): triangles and OBJ
-meshes, texture patterns, CSG, the XYZ and LAB input color spaces, and
-area, circle and hemisphere lights.
+Not ported yet (each raises NotImplementedError): texture patterns
+(also texture maps named in an MTL file), CSG, the XYZ and LAB input
+color spaces, and area, circle and hemisphere lights.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from fast_ray_tracer_tpu_torch.scene import divide as div
 from fast_ray_tracer_tpu_torch.scene import ir as IR
-from fast_ray_tracer_tpu_torch.scene.ir import SceneIR, SceneMeta
+from fast_ray_tracer_tpu_torch.scene.ir import (
+    SceneIR, SceneMeta, default_device,
+)
+from fast_ray_tracer_tpu_torch.scene.obj_loader import load_obj_into
 from fast_ray_tracer_tpu_torch.scene.model import (
     MaterialDesc, PatternDesc, SceneDesc, ShapeDesc,
 )
@@ -89,13 +94,20 @@ def compose_chain(chain) -> np.ndarray:
 class _Tables:
     """Mutable accumulators during the compile walk."""
 
-    def __init__(self, decode):
+    def __init__(self, decode, root_dir):
         self.decode = decode           # input color decode fn (numpy)
+        self.root_dir = root_dir       # base dir of relative OBJ paths
         self.a_type: List[int] = []
         self.a_inv: List[np.ndarray] = []
         self.a_params: List[List[float]] = []
         self.a_mat: List[int] = []
         self.a_doc: List[int] = []        # document-order leaf id per prim
+        # triangles: per-triangle rows (`triangle` shapes) of
+        # (p1, e1, e2, n1, n2, n3, t1, t2, t3, use_tex, mat), and bulk
+        # blocks of column arrays (OBJ meshes, scene/obj_loader.py)
+        self.t_rows: List[Tuple] = []
+        self.t_doc: List[int] = []
+        self.t_blocks: List[dict] = []
         self.next_leaf = 0
         self.m_rows: List[dict] = []
         self.p_rows: List[dict] = []
@@ -178,7 +190,11 @@ def _walk(shape: ShapeDesc, parent_m: np.ndarray, tables: _Tables,
         for child in shape.children:
             _walk(child, m_world, tables, inherited_mat, node.children)
         return
-    if shape.kind not in _KIND_TO_TYPE:
+    if shape.kind == "obj":
+        load_obj_into(shape, m_world, tables, nodes, m_flat)
+        return
+    if shape.kind not in _KIND_TO_TYPE and shape.kind not in (
+            "triangle", "smooth_triangle"):
         raise NotImplementedError(
             f"shape kind {shape.kind!r} is not ported yet")
 
@@ -186,6 +202,38 @@ def _walk(shape: ShapeDesc, parent_m: np.ndarray, tables: _Tables,
               if shape.material is not None else
               (inherited_mat if inherited_mat is not None
                else tables.add_material(None)))
+
+    if shape.kind in ("triangle", "smooth_triangle"):
+        lin = m_world[:3, :3]
+        nrm_m = np.linalg.inv(m_world)[:3, :3].T
+        p1 = lin @ shape.p1 + m_world[:3, 3]
+        p2 = lin @ shape.p2 + m_world[:3, 3]
+        p3 = lin @ shape.p3 + m_world[:3, 3]
+        if shape.kind == "triangle":
+            # flat normal = normalize(cross(e2, e1)) in object space
+            # (src/shapes/triangle.c:84-91), mapped through inv^T
+            e1o = np.asarray(shape.p2) - np.asarray(shape.p1)
+            e2o = np.asarray(shape.p3) - np.asarray(shape.p1)
+            n_obj = np.cross(e2o, e1o)
+            n_obj = n_obj / np.linalg.norm(n_obj)
+            n1 = n2 = n3 = nrm_m @ n_obj
+        else:
+            n1 = nrm_m @ shape.n1
+            n2 = nrm_m @ shape.n2
+            n3 = nrm_m @ shape.n3
+        use_tex = shape.t1 is not None
+        t1 = shape.t1[:2] if use_tex else (0.0, 0.0)
+        t2 = shape.t2[:2] if use_tex else (0.0, 0.0)
+        t3 = shape.t3[:2] if use_tex else (0.0, 0.0)
+        tables.t_rows.append((p1, p2 - p1, p3 - p1, n1, n2, n3,
+                              t1, t2, t3, use_tex, mat_id))
+        tables.t_doc.append(tables.next_leaf)
+        nodes.append(div.Node(
+            kind="triangle", transform=m_flat, leaf_id=tables.next_leaf,
+            obj_box=div.leaf_box("triangle",
+                                 points=[shape.p1, shape.p2, shape.p3])))
+        tables.next_leaf += 1
+        return
     params = [0.0, 0.0, 0.0, 0.0]
     if shape.kind in ("cylinder", "cone"):
         params = [shape.minimum, shape.maximum,
@@ -205,9 +253,12 @@ def _walk(shape: ShapeDesc, parent_m: np.ndarray, tables: _Tables,
 
 
 def compile_scene(scene: SceneDesc, dtype=torch.float32,
-                  device="cpu") -> SceneIR:
+                  device=None) -> SceneIR:
+    """The scene's tables on `device` (default: the CUDA card), float
+    tables in `dtype`."""
+    device = default_device(device)
     decode = _np_decode(scene.config.color_space)
-    tables = _Tables(decode)
+    tables = _Tables(decode, scene.root_dir)
 
     root = div.Node(kind="group", transform=list(div.IDENTITY))
     for shape in scene.world:
@@ -242,6 +293,9 @@ def compile_scene(scene: SceneDesc, dtype=torch.float32,
         idx = np.nonzero(a_type == t)[0]
         if len(idx):
             type_ranges.append((t, int(idx[0]), int(len(idx))))
+
+    tri = _triangle_block(tables, doc_rank)
+    nt = len(tri["p1"])
 
     # ---- materials ----
     if not tables.m_rows:
@@ -298,7 +352,8 @@ def compile_scene(scene: SceneDesc, dtype=torch.float32,
         and cfg.include_specular
     # the containers walk only matters when some Ni != 1 (renderer.c:406-447)
     needs_sort = has_refr and bool((np.abs(mat_Ni - 1.0) > 1e-12).any())
-    n_hit_slots = int(sum(IR.TYPE_MAX_HITS[t] * c for t, _, c in type_ranges))
+    n_hit_slots = int(sum(IR.TYPE_MAX_HITS[t] * c
+                          for t, _, c in type_ranges)) + nt
 
     # static pattern structure for evaluator pruning
     combinators = {IR.PAT_BLENDED, IR.PAT_NESTED, IR.PAT_PERTURBED}
@@ -311,12 +366,15 @@ def compile_scene(scene: SceneDesc, dtype=torch.float32,
         return 1 + max((_depth(int(k)) for k in kids), default=0)
 
     meta = SceneMeta(
-        n_analytic=n_analytic, n_triangles=0, n_materials=M, n_patterns=P,
+        n_analytic=n_analytic, n_triangles=nt, n_materials=M, n_patterns=P,
         n_lights=L, type_ranges=tuple(type_ranges),
         light_info=tuple(light_info), max_light_samples=1,
         has_reflective=has_refl, has_refractive=has_refr,
         needs_hit_sort=needs_sort,
-        use_clusters=False, n_clusters=0, cluster_size=64,
+        use_clusters=tri["use_clusters"], n_clusters=tri["n_clusters"],
+        cluster_size=CLUSTER_SIZE,
+        # the containers walk needs every intersection (negative t
+        # included), so only huge scenes are capped
         max_hits=min(64, max(2, n_hit_slots)),
         any_patterns=bool((mat_map >= 0).any()),
         any_bump=bool((mat_map[:, IR.SLOT_BUMP] >= 0).any()),
@@ -332,25 +390,22 @@ def compile_scene(scene: SceneDesc, dtype=torch.float32,
                                     if r["type"] == IR.PAT_PERTURBED),
                                    default=0)),
         csg_trees=(), has_csg=False,
-        csg_prim_leaf=(-1,) * n_analytic,
-        csg_prim_anc=(0,) * n_analytic,
-        csg_prim_side=(0,) * n_analytic,
+        csg_prim_leaf=(-1,) * (n_analytic + nt),
+        csg_prim_anc=(0,) * (n_analytic + nt),
+        csg_prim_side=(0,) * (n_analytic + nt),
     )
 
     f = lambda x: torch.as_tensor(np.asarray(x, dtype=np.float64))
     i64 = lambda x: torch.as_tensor(np.asarray(x, dtype=np.int64))
     b = lambda x: torch.as_tensor(np.asarray(x, dtype=bool))
-    z3, z2 = np.zeros((0, 3)), np.zeros((0, 2))
     return SceneIR(
         meta=meta,
         inv_tf=f(inv), prim_params=f(params), material_id=i64(a_mat),
-        prim_shadow_rank=i64(a_rank),
-        tri_p1=f(z3), tri_e1=f(z3), tri_e2=f(z3),
-        tri_n1=f(z3), tri_n2=f(z3), tri_n3=f(z3),
-        tri_t1=f(z2), tri_t2=f(z2), tri_t3=f(z2),
-        tri_use_tex=b(np.zeros(0, bool)),
-        tri_material_id=i64(np.zeros(0)),
-        cluster_min=f(np.zeros((1, 3))), cluster_max=f(np.zeros((1, 3))),
+        prim_shadow_rank=i64(np.concatenate([a_rank, tri["rank"]])),
+        **{f"tri_{k}": f(tri[k]) for k in ("p1", "e1", "e2", "n1", "n2",
+                                            "n3", "t1", "t2", "t3")},
+        tri_use_tex=b(tri["use_tex"]), tri_material_id=i64(tri["mat"]),
+        cluster_min=f(tri["cluster_min"]), cluster_max=f(tri["cluster_max"]),
         mat_Ka=f(mat["Ka"]), mat_Kd=f(mat["Kd"]), mat_Ks=f(mat["Ks"]),
         mat_Tf=f(mat["Tf"]), mat_refl=f(mat["refl"]),
         mat_Ns=f(mat_Ns), mat_Ni=f(mat_Ni), mat_Tr=f(mat_Tr),
@@ -368,6 +423,84 @@ def compile_scene(scene: SceneDesc, dtype=torch.float32,
         light_normal=f(np.zeros((L, 3))), light_radius=f(np.zeros(L)),
         light_points=f(li_points), light_mask=b(np.ones((L, 1), bool)),
     ).to(device, dtype)
+
+
+CLUSTER_SIZE = 64
+CLUSTER_MIN_TRIANGLES = 2048
+
+
+def _triangle_block(tables: _Tables, doc_rank: np.ndarray) -> dict:
+    """The triangle columns: per-row triangles first, then each OBJ block,
+    with each triangle's shadow-walk rank. Meshes of 2048 triangles or
+    more are Morton-ordered by centroid and grouped into 64-triangle
+    clusters with AABBs (the tail padded with degenerate triangles at
+    p1 = inf, rank 1 << 30); the clustered queries stream them instead of
+    materialising a (rays x triangles) table. The reference gets the same
+    effect from its per-ray BVH walk (group.c:91-147)."""
+    cols = ("p1", "e1", "e2", "n1", "n2", "n3", "t1", "t2", "t3")
+    width = (3,) * 6 + (2,) * 3
+    out = {}
+    for i, (k, w) in enumerate(zip(cols, width)):
+        rows = (np.asarray([np.asarray(r[i], dtype=np.float64)
+                            for r in tables.t_rows])
+                if tables.t_rows else np.zeros((0, w)))
+        out[k] = np.concatenate([rows] + [b[k] for b in tables.t_blocks])
+    out["use_tex"] = np.concatenate(
+        [np.asarray([r[9] for r in tables.t_rows], dtype=bool)]
+        + [b["use_tex"] for b in tables.t_blocks])
+    out["mat"] = np.concatenate(
+        [np.asarray([r[10] for r in tables.t_rows], dtype=np.int64)]
+        + [b["mat"] for b in tables.t_blocks])
+    doc = np.concatenate([np.asarray(tables.t_doc, dtype=np.int64)]
+                         + [b["doc"] for b in tables.t_blocks])
+    nt = len(out["p1"])
+    out["rank"] = doc_rank[doc] if nt else np.zeros(0, np.int64)
+
+    out["use_clusters"] = nt >= CLUSTER_MIN_TRIANGLES
+    if not out["use_clusters"]:
+        out["n_clusters"] = 0
+        out["cluster_min"] = np.zeros((1, 3))
+        out["cluster_max"] = np.zeros((1, 3))
+        return out
+    order = _morton_order(out["p1"] + (out["e1"] + out["e2"]) / 3.0)
+    for k in cols + ("use_tex", "mat", "rank"):
+        out[k] = out[k][order]
+    pad = (-nt) % CLUSTER_SIZE
+    if pad:
+        fill = {"p1": np.inf, "rank": 1 << 30}
+        for k in cols + ("use_tex", "mat", "rank"):
+            a = out[k]
+            out[k] = np.concatenate([a, np.full((pad,) + a.shape[1:],
+                                                fill.get(k, 0), a.dtype)])
+    nc = (nt + pad) // CLUSTER_SIZE
+    verts = np.stack([out["p1"], out["p1"] + out["e1"],
+                      out["p1"] + out["e2"]], 1)
+    with np.errstate(invalid="ignore"):
+        vc = verts.reshape(nc, CLUSTER_SIZE * 3, 3)
+        finite = np.isfinite(vc).all(-1, keepdims=True)
+        out["cluster_min"] = np.where(finite, vc, np.inf).min(axis=1)
+        out["cluster_max"] = np.where(finite, vc, -np.inf).max(axis=1)
+    out["n_clusters"] = nc
+    return out
+
+
+def _morton_order(centroid: np.ndarray) -> np.ndarray:
+    """Sort order by 30-bit Morton code of quantized centroids — spatially
+    coherent clusters for AABB culling."""
+    lo = centroid.min(axis=0)
+    hi = centroid.max(axis=0)
+    q = ((centroid - lo) / np.where(hi - lo > 0, hi - lo, 1.0)
+         * 1023.0).astype(np.uint32)
+
+    def spread(x):
+        x = (x | (x << 16)) & 0x030000FF
+        x = (x | (x << 8)) & 0x0300F00F
+        x = (x | (x << 4)) & 0x030C30C3
+        x = (x | (x << 2)) & 0x09249249
+        return x
+
+    code = (spread(q[:, 0]) << 2) | (spread(q[:, 1]) << 1) | spread(q[:, 2])
+    return np.argsort(code, kind="stable")
 
 
 def _np_decode(color_space: str):

@@ -1,13 +1,22 @@
-"""Built-in demo scenes (no file dependencies).
+"""Built-in demo scenes (no input files).
 
 `glass_spheres` mirrors the structure of the reference's reflect_refract
 gallery scene (scenes/reflect_refract/reflect_refract.yml): a striped room,
 checkered reflective floor, and reflective+refractive glass spheres — it
 exercises the full Whitted path (patterns, shadows, schlick blending,
 refraction containers) and is the flagship benchmark workload.
+
+`mesh_torus` is the mesh workload: a bumped torus of smooth triangles,
+written as an OBJ file by `write_torus_obj` and loaded through the OBJ
+path, over a reflective checkered floor.
 """
 
 from __future__ import annotations
+
+import os
+from pathlib import Path
+
+import numpy as np
 
 from fast_ray_tracer_tpu_torch.scene.model import (
     ApertureDesc, CameraDesc, ConfigDesc, LightDesc, MaterialDesc,
@@ -78,3 +87,90 @@ def glass_spheres(width: int = 400, height: int = 200,
                           intensity=(1.0, 1.0, 1.0))],
         world=world,
         config=ConfigDesc(divide_threshold=1))
+
+
+SCENE_DIR = Path(__file__).resolve().parents[2] / "build" / "scenes"
+
+
+def write_torus_obj(path, nu: int, nv: int) -> str:
+    """Write a bumped torus as an OBJ file of `v`, `vn` and `f v//vn` quads
+    (nu around the ring x nv around the tube; each quad fan-triangulates
+    into two smooth triangles, 2*nu*nv in all). Deterministic: the same
+    arguments always give the same bytes. Returns the path."""
+    path = str(path)
+    u = 2.0 * np.pi * np.arange(nu) / nu
+    v = 2.0 * np.pi * np.arange(nv) / nv
+    u, v = np.meshgrid(u, v, indexing="ij")          # (nu, nv)
+    big, r0, amp, ku, kv = 1.0, 0.35, 0.12, 9, 6
+    # tube radius with bumps, and its partial derivatives
+    r = r0 * (1.0 + amp * np.sin(ku * u) * np.cos(kv * v))
+    r_u = r0 * amp * ku * np.cos(ku * u) * np.cos(kv * v)
+    r_v = -r0 * amp * kv * np.sin(ku * u) * np.sin(kv * v)
+    ring = big + r * np.cos(v)
+    pos = np.stack([ring * np.cos(u), r * np.sin(v), ring * np.sin(u)], -1)
+    ring_u = r_u * np.cos(v)
+    ring_v = r_v * np.cos(v) - r * np.sin(v)
+    p_u = np.stack([ring_u * np.cos(u) - ring * np.sin(u), r_u * np.sin(v),
+                    ring_u * np.sin(u) + ring * np.cos(u)], -1)
+    p_v = np.stack([ring_v * np.cos(u), r_v * np.sin(v) + r * np.cos(v),
+                    ring_v * np.sin(u)], -1)
+    nrm = np.cross(p_v, p_u)                          # outward
+    nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
+
+    i, j = np.meshgrid(np.arange(nu), np.arange(nv), indexing="ij")
+    vid = lambda a, b: (a % nu) * nv + (b % nv) + 1   # 1-based OBJ ids
+    quads = np.stack([vid(i, j), vid(i + 1, j), vid(i + 1, j + 1),
+                      vid(i, j + 1)], -1).reshape(-1, 4)
+    lines = [f"# bumped torus, {nu} x {nv} quads"]
+    lines += ["v %.17g %.17g %.17g" % tuple(p) for p in pos.reshape(-1, 3)]
+    lines += ["vn %.17g %.17g %.17g" % tuple(n) for n in nrm.reshape(-1, 3)]
+    lines += ["f " + " ".join(f"{k}//{k}" for k in q) for q in quads]
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    os.replace(tmp, path)
+    return path
+
+
+def mesh_torus(width: int = 600, height: int = 240, glass: bool = False,
+               segments=(384, 184)) -> SceneDesc:
+    """A reflective bumped torus of 2 * segments[0] * segments[1] smooth
+    triangles (141,312 by default) over a reflective checkered plane, one
+    point light, Whitted depth 5, a point aperture, one sample per pixel.
+    With `glass` the torus is transparent (0.9) with refractive index 1.5,
+    so the refraction containers walk runs over the mesh. The OBJ file is
+    written to build/scenes/ on first use."""
+    nu, nv = segments
+    path = SCENE_DIR / f"torus_{nu}x{nv}.obj"
+    if not path.exists():
+        SCENE_DIR.mkdir(parents=True, exist_ok=True)
+        write_torus_obj(path, nu, nv)
+    if glass:
+        torus_mat = MaterialDesc(color=(0.1, 0.15, 0.2), ambient=0.0,
+                                 diffuse=0.3, specular=0.9, shininess=300.0,
+                                 reflective=0.9, transparency=0.9,
+                                 refractive_index=1.5)
+    else:
+        torus_mat = MaterialDesc(color=(0.8, 0.35, 0.2), diffuse=0.7,
+                                 specular=0.6, shininess=100.0,
+                                 reflective=0.3)
+    floor = MaterialDesc(
+        color=(0.6, 0.6, 0.6), specular=0.0, reflective=0.4,
+        patterns={"map_Kd": PatternDesc(
+            kind="checker", colors=[(0.35, 0.35, 0.35), (0.65, 0.65, 0.65)],
+            transform=[["scale", 0.5, 0.5, 0.5]])})
+    world = [
+        ShapeDesc(kind="plane", material=floor),
+        ShapeDesc(kind="obj", file=str(path), material=torus_mat,
+                  transform=[["rotate-x", 1.1], ["rotate-y", 0.4],
+                             ["translate", 0.0, 1.25, 0.0]]),
+    ]
+    return SceneDesc(
+        camera=CameraDesc(width=width, height=height, field_of_view=0.9,
+                          frm=(0.0, 3.0, -7.0), to=(0.0, 0.9, 0.0),
+                          up=(0.0, 1.0, 0.0), aperture=ApertureDesc()),
+        lights=[LightDesc(kind="point", at=(-4.0, 6.0, -5.0),
+                          intensity=(1.0, 1.0, 1.0))],
+        world=world,
+        config=ConfigDesc(divide_threshold=1),
+        root_dir=str(SCENE_DIR))

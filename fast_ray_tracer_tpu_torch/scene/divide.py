@@ -15,6 +15,8 @@ planes (bounding_box.c:177-214 via `-inf + inf`), NaN containment tests are
 false, so groups bounded by infinite planes never reorder.
 
 All arithmetic here is scalar Python float (IEEE double, same as C).
+`compile_scene` takes the C++ copy of this walk (`native/`), which is
+held to this one bit for bit.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass, field
 from typing import List, Optional, Tuple
+
+from fast_ray_tracer_tpu_torch import native
 
 EPSILON = 1e-5
 INF = float("inf")
@@ -346,10 +350,15 @@ def collect_leaf_order(node: Node, out: List[int]):
 
 
 def shadow_ranks(root: Node, threshold: int, n_leaves: int):
-    """Divide the tree, then return rank[leaf_id] = visit position.
+    """Divide the tree, then return rank[leaf_id] = visit position, through
+    the C++ walk (native/divide_core.cpp). `shadow_ranks_python` is the
+    reference it is held to, bit for bit."""
+    return native.shadow_ranks(root, threshold, n_leaves)
 
-    The JAX package may take a native C++ walk here; it is bit-identical
-    to this Python one by construction."""
+
+def shadow_ranks_python(root: Node, threshold: int, n_leaves: int):
+    """The Python walk: divide the tree in place, then return
+    rank[leaf_id] = visit position."""
     expand_leafblocks(root)
     divide(root, threshold)
     order: List[int] = []

@@ -1,10 +1,12 @@
 """SceneIR — the flat, SoA, device-resident scene representation.
 
 The same tables as `fast_ray_tracer_tpu.scene.ir`: one block of analytic
-primitives grouped by type, the triangle block, and the material, pattern,
-texture and light tables, with the static structure in `SceneMeta`. Here
-`SceneIR` is a dataclass of torch tensors; `.to(device, dtype)` moves it
-and casts the float tables, keeping index and flag tables as they are.
+primitives grouped by type, the triangle block (world-space triangles,
+Morton-ordered and padded to whole 64-triangle clusters with their AABBs
+when the mesh is clustered), and the material, pattern, texture and light
+tables, with the static structure in `SceneMeta`. Here `SceneIR` is a
+dataclass of torch tensors; `.to(device, dtype)` moves it and casts the
+float tables, keeping index and flag tables as they are.
 """
 
 from __future__ import annotations
@@ -37,6 +39,14 @@ LIGHT_POINT, LIGHT_AREA, LIGHT_CIRCLE, LIGHT_HEMISPHERE = range(4)
 MAP_SLOTS = ["map_Ka", "map_Kd", "map_Ks", "map_Ns", "map_d",
              "map_bump", "map_disp", "map_refl"]
 SLOT_KA, SLOT_KD, SLOT_KS, SLOT_NS, SLOT_D, SLOT_BUMP, SLOT_DISP, SLOT_REFL = range(8)
+
+
+def default_device(device=None) -> torch.device:
+    """`device`, or the CUDA card when it is None: the port's entry points
+    run on the card unless the caller asks for another device. Nothing
+    falls back to the CPU: without a card, the first tensor sent to CUDA
+    raises."""
+    return torch.device("cuda") if device is None else torch.device(device)
 
 
 @dataclass(frozen=True)

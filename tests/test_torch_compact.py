@@ -17,7 +17,7 @@ import jax.numpy as jnp
 from fast_ray_tracer_tpu.ops import compact_pallas as cp
 from fast_ray_tracer_tpu_torch.ops import compact
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 # the case grid of tests/test_compact_pallas.py, plus one overflow case
 # (count > B; B a multiple of 128, where the Pallas kernel's first B rows

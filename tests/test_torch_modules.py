@@ -37,7 +37,7 @@ from fast_ray_tracer_tpu_torch.scene import demo as tdemo
 from fast_ray_tracer_tpu_torch.scene import model as tmodel
 from fast_ray_tracer_tpu_torch.scene.ir import SceneIR, scene_ir_from_numpy
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 ATOL = 1e-12
 W, H = 64, 32
@@ -102,7 +102,7 @@ def scene_pair(request):
     jir = jcomp.compile_scene(jsc, dtype=jnp.float64)
     jrt = jintg.build_statics(jir, jsc.config)
     tsc = SCENES[request.param](tmodel)
-    tir = tcomp.compile_scene(tsc, dtype=torch.float64)
+    tir = tcomp.compile_scene(tsc, dtype=torch.float64, device="cpu")
     trt = tintg.build_statics(tir, tsc.config)
     return jsc, jir, jrt, tsc, tir, trt
 
@@ -141,7 +141,7 @@ def test_compile_scene_tables_match(name):
     jsc = SCENES[name](jmodel)
     tsc = SCENES[name](tmodel)
     jir = jcomp.compile_scene(jsc, dtype=jnp.float64)
-    tir = tcomp.compile_scene(tsc, dtype=torch.float64)
+    tir = tcomp.compile_scene(tsc, dtype=torch.float64, device="cpu")
     assert dataclasses.asdict(tir.meta) == dataclasses.asdict(jir.meta)
     ref = scene_ir_from_numpy(_jax_tables(jir), tir.meta, "cpu",
                               torch.float64)
@@ -151,7 +151,8 @@ def test_compile_scene_tables_match(name):
 
 
 def test_scene_ir_to_casts_floats_only():
-    tir = tcomp.compile_scene(tdemo.glass_spheres(8, 4), dtype=torch.float64)
+    tir = tcomp.compile_scene(tdemo.glass_spheres(8, 4), dtype=torch.float64,
+                              device="cpu")
     f32 = tir.to("cpu", torch.float32)
     assert f32.inv_tf.dtype == torch.float32
     assert f32.material_id.dtype == torch.int64
@@ -172,7 +173,7 @@ def test_rays_for_pixels():
     jc = jcam.build_camera(jdemo.glass_spheres(W, H).camera,
                            dtype=jnp.float64)
     tc = tcam.build_camera(tdemo.glass_spheres(W, H).camera,
-                           dtype=torch.float64)
+                           dtype=torch.float64, device="cpu")
     jo, jd = jcam.rays_for_pixels(jc, jnp.asarray(px), jnp.asarray(py),
                                   jnp.asarray(uv), jnp.zeros((n, 2)))
     to, td = tcam.rays_for_pixels(tc, _t(px), _t(py), _t(uv),
@@ -251,7 +252,8 @@ def test_normal_at(scene_pair):
     zero = jnp.zeros(n, jnp.float64)
     want = jnorm.normal_at(jir, jctx, jnp.asarray(prim, jnp.int32),
                            jnp.asarray(pts), zero, zero)
-    _close(tnorm.normal_at(tir, tctx, _t(pts)), want)
+    _close(tnorm.normal_at(tir, tctx, _t(prim), _t(pts),
+                           _t(zero), _t(zero)), want)
 
 
 def test_prepare_computations(scene_pair):
@@ -309,4 +311,4 @@ def test_unported_features_raise(change):
         sc.config.color_space = "XYZ"
     from fast_ray_tracer_tpu_torch.render.render import render_scene
     with pytest.raises(NotImplementedError):
-        render_scene(sc, dtype=torch.float64)
+        render_scene(sc, dtype=torch.float64, device="cpu")

@@ -35,7 +35,7 @@ from fast_ray_tracer_tpu_torch.render import render as trender
 from fast_ray_tracer_tpu_torch.scene import compile as tcomp
 from fast_ray_tracer_tpu_torch.scene import demo as tdemo
 
-torch.set_num_threads(2)
+torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 DEPTH = 5
@@ -47,7 +47,7 @@ def _port_rays(scene, dtype):
     px = torch.arange(cam.width).repeat(cam.height)
     py = torch.arange(cam.height).repeat_interleave(cam.width)
     uv = torch.as_tensor(cmj_points_static(1, 1), dtype=dtype).expand(n, 2)
-    rt = tcam.build_camera(cam, dtype=dtype)
+    rt = tcam.build_camera(cam, dtype=dtype, device="cpu")
     return tcam.rays_for_pixels(rt, px, py, uv, torch.zeros((n, 2),
                                                             dtype=dtype))
 
@@ -83,7 +83,7 @@ def test_trace_bucketed_matches_jax():
     assert not bool(j_ovf)
 
     tsc = tdemo.glass_spheres(W, H)
-    tir = tcomp.compile_scene(tsc, dtype=torch.float64)
+    tir = tcomp.compile_scene(tsc, dtype=torch.float64, device="cpu")
     trt = tintg.build_statics(tir, tsc.config)
     o, d = _port_rays(tsc, torch.float64)
     t_counts = [int(c) for c in tintg.spawn_counts(tir, trt, o, d, DEPTH)]
@@ -102,7 +102,7 @@ def test_render_scene_matches_jax(tmp_path, monkeypatch):
     stats = {}
     got = trender.render_scene(tdemo.glass_spheres(64, 32),
                                dtype=torch.float64, chunk_pixels=1024,
-                               stats=stats)
+                               device="cpu", stats=stats)
     assert stats["escalations"] == 0 and stats["exact_chunks"] == 0
     assert got.shape == (32, 64, 3) and got.dtype == np.float64
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
@@ -117,7 +117,8 @@ def test_render_f32_matches_jax_interpret_kernels(tmp_path, monkeypatch):
         want = jrender.render_scene(jdemo.glass_spheres(32, 16),
                                     dtype=jnp.float32, chunk_pixels=512)
     got = trender.render_scene(tdemo.glass_spheres(32, 16),
-                               dtype=torch.float32, chunk_pixels=512)
+                               dtype=torch.float32, chunk_pixels=512,
+                               device="cpu")
     close = np.all(np.abs(got - want) <= 1e-4, axis=-1)
     assert close.mean() >= 0.995, close.mean()
 
@@ -128,7 +129,7 @@ def test_bucketed_matches_unrolled(dtype):
     bit (the port of tests/test_bucketed.py), and the overflow flag fires
     when a bucket is starved."""
     sc = tdemo.glass_spheres(64, 32)
-    ir = tcomp.compile_scene(sc, dtype=dtype)
+    ir = tcomp.compile_scene(sc, dtype=dtype, device="cpu")
     rt = tintg.build_statics(ir, sc.config)
     o, d = _port_rays(sc, dtype)
     exact = tintg.trace(ir, rt, o, d, DEPTH)
@@ -151,12 +152,13 @@ def test_render_overflow_falls_back_exactly(monkeypatch):
     """Undersized buckets: every chunk escalates, then re-renders on the
     exact trace — and the canvas is the same as the calibrated render's."""
     sc = tdemo.glass_spheres(32, 16)
-    want = trender.render_scene(sc, dtype=torch.float64, chunk_pixels=256)
+    want = trender.render_scene(sc, dtype=torch.float64, chunk_pixels=256,
+                                device="cpu")
     monkeypatch.setattr(trender, "quantize_buckets",
                         lambda counts, margin: (64,) * len(counts))
     stats = {}
     got = trender.render_scene(sc, dtype=torch.float64, chunk_pixels=256,
-                               stats=stats)
+                               device="cpu", stats=stats)
     assert stats["escalations"] == 2 and stats["exact_chunks"] == 2
     np.testing.assert_array_equal(got, want)
 
