@@ -11,9 +11,12 @@ Phases, one line each or more:
      of the 800x400 frame (N = 640,000; B from the bucket calibration), the
      CUDA kernel against its plain torch version on the same inputs, bit for
      bit, over act densities {0, .05, .5, .95, 1}, a ragged N, an overflow
-     case, float64, a scan of more than 1024 tiles and a 5-row input, and
-     the VJPs of the autograd pair; median times of both, and of the
-     nearest single PyTorch call (library_ms), which the port never calls;
+     case, float64, a scan of more than 1024 tiles, a 5-row input, N an
+     exact multiple of the compaction tile, N = 0, C = 32 in float64 and
+     float32, two compactions back to back on one stream with different
+     act (the look-back scratch resets), and the VJPs of the autograd pair;
+     median event times of both, and of the nearest single PyTorch call
+     (library_ms), which the port never calls;
   4. render: render_scene(glass_spheres(800, 400)) in float32 on the card,
      the whole frame in one chunk: the launch counts of that call, then the
      warm wall (median of --reps, default 3) and rays/s at 126 rays/pixel;
@@ -24,9 +27,12 @@ Phases, one line each or more:
      shadow, the CUDA kernel against its plain torch version, bit for bit
      (t, index, rank): at the level-0 shape of the mesh_torus frame
      (144,000 rays against 141,312 triangles) in float32 and float64, a
-     ragged ray count, dead lanes and strided ray views, and on the
-     512k-triangle x 16,384-ray soup of tools/bench_mesh_stream.py; median
-     times of both;
+     ragged ray count, dead lanes, strided ray views, the probe's in-frame
+     shape (the 144,000 rays followed by FILL_ROW rows up to the probe's
+     432,128-lane bucket, as strided views of its rows), all-dead batches,
+     and on the 512k-triangle x 16,384-ray soup of
+     tools/bench_mesh_stream.py; median times of both, beside two bounds:
+     the flat walk's (every slab test) and the passed pairs' alone;
   8. mesh render: render_scene(mesh_torus(600, 240)) in float32, the whole
      frame in one chunk: the launch counts of that call (every kernel at
      least once), no bucket overflow, a finite canvas; the warm wall
@@ -36,8 +42,10 @@ Phases, one line each or more:
      the kernel frame against the plain-mesh frame and trace_bucketed
      against the unrolled trace, bit for bit;
  10. mesh output: the sha256 of the mesh frame's PPM.
-Then the card's nvidia-smi line, a JSON line of per-kernel results and,
-last, the device JSON line. Any failure raises and exits non-zero.
+Then the compaction's device time per call from torch.profiler (after
+every wall-clock phase: the profiler leaves launches slower), the card's
+nvidia-smi line, a JSON line of per-kernel results and, last, the device
+JSON line. Any failure raises and exits non-zero.
 --reps sets the number of warm frames of each render. With --profile, the
 level-0 compaction calls and one warm frame of each render run under
 torch.profiler, and their per-kernel device-time tables go to PATH.
@@ -66,8 +74,8 @@ from fast_ray_tracer_tpu_torch.render.camera import (
     build_camera, rays_for_pixels,
 )
 from fast_ray_tracer_tpu_torch.render.integrator import (
-    FILL_ROW, build_statics, prepare_computations, spawn_counts, trace,
-    trace_bucketed,
+    FILL_ROW, PROBE_CEILING, build_statics, prepare_computations,
+    spawn_counts, trace, trace_bucketed,
 )
 from fast_ray_tracer_tpu_torch.render.render import (
     quantize_buckets, render_scene,
@@ -123,38 +131,82 @@ def median_ms(fn, reps=30):
     return statistics.median(times)
 
 
+def device_us(prof):
+    """Device time (us) in a torch.profiler run: device-side rows only
+    (kernels, copies, memsets); an aten op's row repeats the device time of
+    the kernels it launched."""
+    from torch.autograd import DeviceType
+    return sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+               for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
+
+
+def profiled_ms(fn, calls=20):
+    """Device time per call of fn() in ms, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return device_us(prof) / calls / 1e3
+
+
 def check_kernels(device, n0, b0, seed=0):
     """Kernel == plain, bitwise, over the case grid; returns per kernel
     its max_abs_err, ms, plain_ms, bound_ms, bound_by and library_ms."""
     g = torch.Generator(device=device).manual_seed(seed)
     n = 2 * n0
-    cases = [(f"p={p}", n, p, b0, torch.float32)
-             for p in (0.0, 0.05, 0.5, 0.95, 1.0)]
-    cases += [("ragged", n - 333, 0.5, b0, torch.float32),
-              ("overflow", n, 0.5, n // 4, torch.float32),
-              ("float64", n, 0.5, b0, torch.float64),
-              # more than 1024 tiles: the one-block scan loops and carries
-              ("two-pass scan", 1_500_001, 0.5, 1_000_000, torch.float32),
-              ("tiny", 5, 0.5, 8, torch.float32)]
+    f32, f64 = torch.float32, torch.float64
+    tile = compact.compact_tile_rows(6, f32)
+    cases = [(f"p={p}", n, p, b0, f32, 6) for p in (0.0, 0.05, 0.5, 0.95, 1.0)]
+    cases += [("ragged", n - 333, 0.5, b0, f32, 6),
+              ("overflow", n, 0.5, n // 4, f32, 6),
+              ("float64", n, 0.5, b0, f64, 6),
+              # more than 1024 tiles: the expansion's one-block scan carries
+              ("two-pass scan", 1_500_001, 0.5, 1_000_000, f32, 6),
+              ("tiny", 5, 0.5, 8, f32, 6),
+              ("tile multiple", 400 * tile, 0.5, b0, f32, 6),
+              ("N=0", 0, 0.5, 64, f32, 6),
+              ("C=32 float64", 200_003, 0.5, 150_000, f64, 32),
+              ("C=32 float32 overflow", 200_003, 0.5, 60_000, f32, 32)]
     err = {"compact": 0.0, "expand": 0.0}
-    for name, nn, p, b, dt in cases:
+    for name, nn, p, b, dt, c in cases:
         act = torch.rand(nn, generator=g, device=device) < p
-        src = torch.randn((nn, 6), generator=g, device=device, dtype=dt)
+        src = torch.randn((nn, c), generator=g, device=device, dtype=dt)
         child = torch.randn((b, 9), generator=g, device=device, dtype=dt)
-        got_c = compact.compact_rows_cuda(src, act, b, FILL_ROW)
-        want_c = compact.compact_rows_plain(src, act, b, FILL_ROW)
+        fill = (FILL_ROW * 6)[:c]
+        got_c = compact.compact_rows_cuda(src, act, b, fill)
+        want_c = compact.compact_rows_plain(src, act, b, fill)
         got_e = compact.expand_rows_cuda(child, act)
         want_e = compact.expand_rows_plain(child, act)
         torch.cuda.synchronize()
         count = int(act.sum())
         ok = torch.equal(got_c, want_c) and torch.equal(got_e, want_e)
-        err["compact"] = max(err["compact"],
-                             float((got_c - want_c).abs().max()))
-        err["expand"] = max(err["expand"], float((got_e - want_e).abs().max()))
-        log("kernels", f"{name}: N={nn} B={b} live={count} "
+        for k, (x, y) in (("compact", (got_c, want_c)),
+                          ("expand", (got_e, want_e))):
+            if x.numel():
+                err[k] = max(err[k], float((x - y).abs().max()))
+        log("kernels", f"{name}: N={nn} C={c} B={b} live={count} "
             f"{'overflow ' if count > b else ''}{dt} equal={ok}")
         if not ok:
             raise AssertionError(f"kernel != plain in case {name}")
+
+    # two compactions back to back on one stream, no sync between: the
+    # second must start from a clean ticket and clean status words
+    acts = [torch.rand(n, generator=g, device=device) < p for p in (0.3, 0.7)]
+    src = torch.randn((n, 6), generator=g, device=device)
+    got = [compact.compact_rows_cuda(src, a, b0, FILL_ROW) for a in acts]
+    torch.cuda.synchronize()
+    ok = all(torch.equal(x, compact.compact_rows_plain(src, a, b0, FILL_ROW))
+             for x, a in zip(got, acts))
+    log("kernels", f"back to back: N={n} B={b0} "
+        f"live={[int(a.sum()) for a in acts]} equal={ok}")
+    if not ok:
+        raise AssertionError("back-to-back compactions != plain")
 
     # the autograd pair: each backward launches the other kernel
     act = torch.rand(n, generator=g, device=device) < 0.5
@@ -176,11 +228,10 @@ def check_kernels(device, n0, b0, seed=0):
     src = torch.randn((n, 6), generator=g, device=device)
     child = torch.randn((b0, 9), generator=g, device=device)
     timing = {
-        "compact": (
-            median_ms(lambda: compact.compact_rows_cuda(src, act, b0,
-                                                        FILL_ROW)),
-            median_ms(lambda: compact.compact_rows_plain(src, act, b0,
-                                                         FILL_ROW))),
+        "compact": (median_ms(lambda: compact.compact_rows_cuda(
+                        src, act, b0, FILL_ROW)),
+                    median_ms(lambda: compact.compact_rows_plain(
+                        src, act, b0, FILL_ROW))),
         "expand": (
             median_ms(lambda: compact.expand_rows_cuda(child, act)),
             median_ms(lambda: compact.expand_rows_plain(child, act))),
@@ -201,13 +252,30 @@ def check_kernels(device, n0, b0, seed=0):
     for k, (kern, plain) in timing.items():
         bound = nbytes[k] / HBM_BYTES_PER_S * 1e3
         log("kernels", f"{k}_rows N={n} B={b0} p=0.5: kernel "
-            f"{kern * 1e3:.1f} us, plain {plain * 1e3:.1f} us, library "
-            f"{library[k] * 1e3:.1f} us (median of 30); bound "
+            f"{kern * 1e3:.1f} us, plain {plain * 1e3:.1f} us, "
+            f"library {library[k] * 1e3:.1f} us (median of 30); bound "
             f"{bound * 1e3:.2f} us ({nbytes[k]} B at 3.35 TB/s)")
         out[k] = {"max_abs_err": err[k], "ms": kern, "plain_ms": plain,
                   "bound_ms": bound, "bound_by": "bytes",
                   "library_ms": library[k]}
     return out
+
+
+def compact_device_ms(device, n0, b0, event_ms):
+    """The compaction's device time per call at the level-0 shape, from
+    torch.profiler. The event time also holds the wrapper's host work
+    (allocation, ctypes) whenever the card waits for it. Run after every
+    wall-clock phase: once the profiler has run, launches cost more."""
+    g = torch.Generator(device=device).manual_seed(3)
+    n = 2 * n0
+    act = torch.rand(n, generator=g, device=device) < 0.5
+    src = torch.randn((n, 6), generator=g, device=device)
+    ms = profiled_ms(lambda: compact.compact_rows_cuda(src, act, b0,
+                                                       FILL_ROW))
+    log("kernels", f"compact_rows N={n} B={b0} p=0.5: device {ms * 1e3:.2f} "
+        f"us a call (profiler, 20 calls) beside the event time "
+        f"{event_ms * 1e3:.1f} us")
+    return ms
 
 
 def frame(device, compaction="auto", stats=None, scene=None):
@@ -289,22 +357,27 @@ def build_soup(device, n_tri=512 * 1024, n_rays=16384):
 
 
 def mesh_bound(m, orig, dirs, aux_bytes):
-    """Least time of a mesh query on these inputs: the larger of its
-    bytes (rays, planes and boxes read once, t and index written once) at
-    3.35 TB/s and its float32 operations — every (ray, supercluster) slab
-    test, and a Möller-Trumbore for each of the 128 triangles behind every
-    test that passes — at 67 TFLOP/s. Returns (ms, bound_by, ops)."""
+    """Least time of a mesh query on these inputs, two ways. Bytes: rays,
+    planes and boxes read once, t and index written once, at 3.35 TB/s.
+    Float32 operations at 67 TFLOP/s: the flat walk's — every (ray,
+    supercluster) slab test, and a Möller-Trumbore for each of the 128
+    triangles behind every test that passes — and the passed pairs'
+    alone, the least work any implementation of the contract does.
+    Returns (flat ms, bound_by, flat ops, pairs ms, passed pairs)."""
     n, nsc = orig.shape[0], m.box_min.shape[0]
     rows = max(1, (1 << 22) // nsc)
     passed = sum(int(mesh.cluster_mask(m.box_min, m.box_max, orig[r:r + rows],
                                        dirs[r:r + rows]).sum())
                  for r in range(0, n, rows))
-    ops = n * nsc * SLAB_OPS + passed * mesh.SC * MT_OPS
+    pair_ops = passed * mesh.SC * MT_OPS
+    ops = n * nsc * SLAB_OPS + pair_ops
     nbytes = (n * 6 + m.tris.numel() + 6 * nsc) * 4 + n * 8 \
         + aux_bytes * nsc * mesh.SC
     t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    t_pairs = max(pair_ops / FP32_OPS_PER_S, t_bytes)
     return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", ops)
+            "operations" if t_ops >= t_bytes else "bytes", ops,
+            t_pairs * 1e3, passed)
 
 
 def _equal_outputs(got, want):
@@ -342,9 +415,16 @@ def check_mesh_kernels(device):
     od = torch.where(dead[:, None], 1e30, o)
     dd = torch.where(dead[:, None], 1.0, d)
     rows = torch.cat([o, d], -1)               # strided (R, 3) views
-    m64 = mesh.MeshTables(m.tris.double(), m.box_min.double(),
-                          m.box_max.double(), m.rank, m.cast, None)
+    m64 = m._replace(**{k: getattr(m, k).double() for k in (
+        "tris", "box_min", "box_max", "group_min", "group_max", "root_min",
+        "root_max")})
     n = o.shape[0]
+    # the probe's in-frame shape: its bucket of PROBE_CEILING x the primary
+    # rays, the live rays first and FILL_ROW past them, as strided views
+    nprobe = int(np.ceil(n * PROBE_CEILING / 256.0)) * 256
+    probe = torch.tensor(FILL_ROW, device=device).repeat(nprobe, 1)
+    probe[:n] = rows
+    all_dead = torch.tensor(FILL_ROW, device=device).repeat(16384, 1)
     cases = [
         ("closest f32", "closest", m, o, d, None),
         ("closest f32 keep", "closest", m, o, d, keep),
@@ -353,6 +433,12 @@ def check_mesh_kernels(device):
         ("closest strided", "closest", m, rows[:, :3], rows[:, 3:], None),
         ("closest f64", "closest", m64, o.double(), d.double(), None),
         ("closest f64 keep", "closest", m64, o.double(), d.double(), keep),
+        ("closest probe shape", "closest", m, probe[:, :3], probe[:, 3:],
+         None),
+        ("closest all dead", "closest", m, all_dead[:, :3], all_dead[:, 3:],
+         None),
+        ("closest all dead f64 ragged", "closest", m64,
+         all_dead[:999, :3].double(), all_dead[:999, 3:].double(), None),
         ("shadow f32", "shadow", m, so, sd, None),
         ("shadow ragged", "shadow", m, so[:n - 333], sd[:n - 333], None),
         ("shadow f64", "shadow", m64, so.double(), sd.double(), None),
@@ -362,7 +448,11 @@ def check_mesh_kernels(device):
                                           device=device),
                       torch.rand(sir.tri_p1.shape[0], generator=g,
                                  device=device) < 0.7)
+    skeep = mesh.pack_plane(torch.rand(sir.tri_p1.shape[0], generator=g,
+                                       device=device) < 0.5, False)
     cases += [("soup closest", "closest", smesh, sorig, sdirs, None),
+              ("soup closest keep ragged", "closest", smesh, sorig[:-77],
+               sdirs[:-77], skeep),
               ("soup shadow", "shadow", smesh, sorig, sdirs, None)]
     fns = {"closest": (mesh.closest_cuda, mesh.closest_plain),
            "shadow": (mesh.shadow_cuda, mesh.shadow_plain)}
@@ -388,20 +478,25 @@ def check_mesh_kernels(device):
     for kind, (mm, oo, dd_, aux), label in (
             ("closest", (m, o, d, 0), "level 0"),
             ("shadow", (m, so, sd, 5), "level 0"),
+            ("probe closest", (m, probe[:, :3], probe[:, 3:], 0),
+             "probe shape"),
             ("soup closest", (smesh, sorig, sdirs, 0), "512k soup"),
             ("soup shadow", (smesh, sorig, sdirs, 5), "512k soup")):
         kern, plain = fns[kind.split()[-1]]
         ms = median_ms(lambda: kern(mm, oo, dd_), reps=20)
         plain_ms = median_ms(lambda: plain(mm, oo, dd_), reps=3)
-        bound, by, ops = mesh_bound(mm, oo, dd_, aux)
+        bound, by, ops, bound_pairs, passed = mesh_bound(mm, oo, dd_, aux)
         log("mesh-kernels", f"{kind} {label} ({oo.shape[0]} rays x "
             f"{mm.tris.shape[1] * mesh.SC} triangles): kernel {ms:.3f} ms "
             f"(median of 20), plain {plain_ms:.3f} ms (median of 3); bound "
-            f"{bound:.4f} ms by {by} ({ops:.4g} float32 operations)")
+            f"{bound:.4f} ms by {by} ({ops:.4g} float32 operations, "
+            f"{bound / ms:.2%} of it reached); passed pairs {passed}: bound "
+            f"{bound_pairs:.4f} ms ({bound_pairs / ms:.2%} reached)")
         if kind in err:
             out[kind] = {"max_abs_err": err[kind], "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bound,
-                         "bound_by": by, "library_ms": None}
+                         "bound_by": by, "library_ms": None,
+                         "bound_pairs_ms": bound_pairs}
     return out
 
 
@@ -496,15 +591,6 @@ def profile_to(path, device, b0, card, wall, mesh_wall):
         _, t = frame(device)
     with profile(activities=acts) as mprof:
         _, mt = frame(device, scene=mesh_torus(MW, MH))
-
-    def device_us(prof):
-        # device-side rows only (kernels, copies): an aten op's row repeats
-        # the device time of the kernels it launched
-        from torch.autograd import DeviceType
-        return sum(getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0))
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA)
 
     busy = device_us(fprof) / 1e6
     mbusy = device_us(mprof) / 1e6
@@ -634,6 +720,8 @@ def main():
         f.write(ppm)
     log("mesh-output", f"{path} sha256 {hashlib.sha256(ppm).hexdigest()}")
 
+    kstats["compact"]["device_ms"] = compact_device_ms(
+        device, W * H, b0, kstats["compact"]["ms"])
     if args.profile:
         profile_to(args.profile, device, b0, f"{kind}; {smi}", wall,
                    mesh_wall)

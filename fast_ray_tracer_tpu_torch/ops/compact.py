@@ -11,14 +11,18 @@ On a CUDA tensor both launch the hand-written kernels of
 `csrc/compact.cu` (replacing the TPU kernels `_compact_kernel` and
 `_expand_kernel` of fast_ray_tracer_tpu/ops/compact_pallas.py), built on
 first use with nvcc into build/kernels/ (`_build.py`) and loaded with
-ctypes; a kernel that cannot be built or launched raises. On a CPU tensor
-they take the plain torch versions below, which are also the reference
-the kernels are held to. `LAUNCHES` counts kernel launches per operation.
+ctypes; a kernel that cannot be built or launched raises. Compaction is
+one single-pass scan-and-move launch plus a fill launch, which also
+clears the per-stream scratch for the next call; expansion is a count, a
+one-block scan and a move. On a CPU tensor they take the plain torch
+versions below, which are also the reference the kernels are held to.
+`LAUNCHES` counts the calls that launched each operation's kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -64,18 +68,28 @@ def _load():
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         for name in ("frt_compact_f32", "frt_compact_f64"):
             fn = getattr(lib, name)
-            fn.argtypes = [vp, vp, vp, vp, vp, vp, i64, i32, i64,
-                           ctypes.POINTER(ctypes.c_double), vp]
+            fn.argtypes = [vp, vp, vp, vp, i64, i64, i32, i64,
+                           ctypes.POINTER(ctypes.c_double), i32, vp]
             fn.restype = i32
         for name in ("frt_expand_f32", "frt_expand_f64"):
             fn = getattr(lib, name)
             fn.argtypes = [vp, vp, vp, vp, vp, vp, i64, i32, i64, vp]
             fn.restype = i32
-        for name in ("frt_tile", "frt_max_c"):
+        for name in ("frt_tile", "frt_max_c", "frt_compact_min_tile_rows"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i32
+        lib.frt_compact_tile_rows.argtypes = [i32, i32]
+        lib.frt_compact_tile_rows.restype = i32
+        lib.max_c = lib.frt_max_c()
+        lib.min_tile_rows = lib.frt_compact_min_tile_rows()
         _lib = lib
     return _lib
+
+
+def compact_tile_rows(c: int, dtype) -> int:
+    """Rows per tile of the compaction kernel for rows of c elements."""
+    return _load().frt_compact_tile_rows(c, torch.empty((), dtype=dtype)
+                                         .element_size())
 
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -92,11 +106,29 @@ def _check(rows, act, what: str):
         raise ValueError(f"{what}: act on {act.device}, rows on {rows.device}")
 
 
-def _scratch(n: int, device):
+def _expand_scratch(n: int, device):
     nb = max(1, -(-n // _load().frt_tile()))
     return (torch.empty(nb, dtype=torch.int32, device=device),
             torch.empty(nb, dtype=torch.int32, device=device),
             torch.empty(1, dtype=torch.int32, device=device))
+
+
+# the compaction's scratch per (device, stream): ticket, total and one
+# status word per tile. Zeroed once when made; every call leaves it clean
+# for the next call on its stream. The lock keeps two threads from
+# interleaving their launches on one stream's scratch (ctypes releases the
+# GIL during the call).
+_compact_scratch = {}
+_compact_lock = threading.Lock()
+
+
+def _stream_scratch(device, stream: int, words: int):
+    key = (device.index, stream)
+    buf = _compact_scratch.get(key)
+    if buf is None or buf.numel() < words:
+        buf = torch.zeros(words, dtype=torch.int64, device=device)
+        _compact_scratch[key] = buf
+    return buf
 
 
 def _raise_on(err: int, what: str):
@@ -109,22 +141,28 @@ def compact_rows_cuda(src, act, B: int, fill_row):
     _check(src, act, "compact_rows")
     n, c = src.shape
     lib = _load()
-    max_c = lib.frt_max_c()
-    if act.shape[0] != n or len(fill_row) != c or not 1 <= c <= max_c:
+    if act.shape[0] != n or len(fill_row) != c or not 1 <= c <= lib.max_c:
         raise ValueError(f"compact_rows: act {tuple(act.shape)}, fill row of "
                          f"{len(fill_row)} for src {tuple(src.shape)} "
-                         f"(C <= {max_c})")
+                         f"(C <= {lib.max_c})")
     if not 1 <= B < 2**31 or n >= 2**31:
         raise ValueError(f"compact_rows: B={B}, N={n} out of range")
-    with torch.cuda.device(src.device):
-        out = torch.empty((B, c), dtype=src.dtype, device=src.device)
-        count, off, total = _scratch(n, src.device)
-        fill = (ctypes.c_double * c)(*fill_row)
-        stream = torch.cuda.current_stream(src.device).cuda_stream
+    # host work here is most of a call's time at the wavefront's sizes:
+    # the raw stream handle, and the device switched inside the library
+    dev = src.device
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    out = torch.empty((B, c), dtype=src.dtype, device=dev)
+    fill = (ctypes.c_double * c)(*fill_row)
+    with _compact_lock:
+        scratch = _stream_scratch(dev, stream, 2 + -(-n // lib.min_tile_rows))
         err = getattr(lib, "frt_compact_" + _SUFFIX[src.dtype])(
-            src.data_ptr(), act.data_ptr(), out.data_ptr(), count.data_ptr(),
-            off.data_ptr(), total.data_ptr(), n, c, B, fill, stream)
-        LAUNCHES["compact"] += 1
+            src.data_ptr(), act.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), scratch.numel(), n, c, B, fill, dev.index,
+            stream)
+        if err != 0:
+            # a call that failed part way may leave its scratch dirty
+            _compact_scratch.pop((dev.index, stream), None)
+    LAUNCHES["compact"] += 1
     _raise_on(err, "compact_rows")
     return out
 
@@ -139,7 +177,7 @@ def expand_rows_cuda(child, act):
     lib = _load()
     with torch.cuda.device(child.device):
         out = torch.empty((n, c), dtype=child.dtype, device=child.device)
-        count, off, total = _scratch(n, child.device)
+        count, off, total = _expand_scratch(n, child.device)
         stream = torch.cuda.current_stream(child.device).cuda_stream
         err = getattr(lib, "frt_expand_" + _SUFFIX[child.dtype])(
             child.data_ptr(), act.data_ptr(), out.data_ptr(),

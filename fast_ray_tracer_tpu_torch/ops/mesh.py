@@ -4,8 +4,10 @@ superclusters behind a per-ray slab test.
 `pack(ir, ...)` lays a clustered mesh out once per scene as `MeshTables`:
 the triangle soup as 9 component planes (9, Nsc, 128) [p1|e1|e2 x xyz],
 the AABB of each supercluster (two adjacent Morton-ordered 64-triangle
-clusters), and per-triangle planes of shadow-walk rank, casts-shadow flag
-and (for refraction) Ni. Then:
+clusters), the boxes of groups of GROUP consecutive superclusters and the
+root box over all of them (the closest kernel's cull), and per-triangle
+planes of shadow-walk rank, casts-shadow flag and (for refraction) Ni.
+Then:
 - `closest(m, orig, dirs, keep)`: per ray the minimum positive t and the
   lowest triangle index at that t; (inf, 0) on a miss; `keep` drops
   triangles from the query;
@@ -46,6 +48,7 @@ from fast_ray_tracer_tpu_torch import _build
 from fast_ray_tracer_tpu_torch.constants import EPSILON
 
 SC = 128                   # triangles per supercluster (two clusters of 64)
+GROUP = 32                 # superclusters per group box
 INT32_MAX = 2**31 - 1
 _BIG = 1e30                # empty-box sentinel of padded superclusters
 # elements of the largest (rays x boxes x 3) or (pairs x SC) temporaries
@@ -63,6 +66,12 @@ class MeshTables(NamedTuple):
     rank: torch.Tensor           # (Nsc, SC) int32 shadow-walk rank
     cast: torch.Tensor           # (Nsc, SC) bool casts shadow
     ni: Optional[torch.Tensor]   # (Nsc, SC) Ni, for the containers walk
+    # the closest kernel's cull (group_boxes): (ceil(Nsc / GROUP), 3) group
+    # boxes and the (1, 3) root box
+    group_min: Optional[torch.Tensor] = None
+    group_max: Optional[torch.Tensor] = None
+    root_min: Optional[torch.Tensor] = None
+    root_max: Optional[torch.Tensor] = None
 
 
 # ---------------------------------------------------------------------------
@@ -96,6 +105,30 @@ def sc_boxes(cluster_min, cluster_max):
     return cmin.amin(1).contiguous(), cmax.amax(1).contiguous()
 
 
+def group_boxes(box_min, box_max):
+    """Boxes of GROUP consecutive superclusters, and the root box over all:
+    (group_min, group_max) (ceil(Nsc / GROUP), 3) and (root_min, root_max)
+    (1, 3), each the exact componentwise min / max of its members' bounds.
+    A member bound that is NaN fails every slab test, so it is left out.
+    The last group is not padded with boxes: the kernel takes its members
+    by count (the empty-box sentinel _BIG would pass every live ray's slab
+    test)."""
+    nsc = box_min.shape[0]
+    pad = -nsc % GROUP
+    dt, dev = box_min.dtype, box_min.device
+
+    def reduce(x, neutral, op):
+        x = torch.where(torch.isnan(x), neutral, x)
+        x = torch.cat([x, torch.full((pad, 3), neutral, dtype=dt,
+                                     device=dev)])
+        g = op(x.reshape(-1, GROUP, 3), 1).contiguous()
+        return g, op(g, 0, keepdim=True).contiguous()
+
+    (gmin, rmin), (gmax, rmax) = (reduce(box_min, torch.inf, torch.amin),
+                                  reduce(box_max, -torch.inf, torch.amax))
+    return gmin, gmax, rmin, rmax
+
+
 def pack(ir, tri_rank, tri_shadow, tri_ni=None) -> MeshTables:
     """Pack a clustered mesh (ir.meta.use_clusters, cluster_size 64)."""
     box_min, box_max = sc_boxes(ir.cluster_min, ir.cluster_max)
@@ -104,7 +137,9 @@ def pack(ir, tri_rank, tri_shadow, tri_ni=None) -> MeshTables:
         box_min=box_min, box_max=box_max,
         rank=pack_plane(tri_rank.to(torch.int32), INT32_MAX),
         cast=pack_plane(tri_shadow, False),
-        ni=None if tri_ni is None else pack_plane(tri_ni, 1.0))
+        ni=None if tri_ni is None else pack_plane(tri_ni, 1.0),
+        **dict(zip(("group_min", "group_max", "root_min", "root_max"),
+                   group_boxes(box_min, box_max))))
 
 
 # ---------------------------------------------------------------------------
@@ -320,16 +355,20 @@ def _load():
         for sfx in _SUFFIX.values():
             fn = getattr(lib, f"frt_mesh_closest_{sfx}")
             fn.argtypes = [vp, vp, i64, i64, i64, vp, vp, vp, i32, vp, vp,
-                           vp, vp]
+                           vp, vp, i32, vp, vp, vp, vp, vp]
+            fn.restype = i32
+            fn = getattr(lib, f"frt_mesh_closest_split_{sfx}")
+            fn.argtypes = [i64, i32]
             fn.restype = i32
             fn = getattr(lib, f"frt_mesh_shadow_{sfx}")
             fn.argtypes = [vp, vp, i64, i64, i64, vp, vp, vp, i32, vp, vp,
                            vp, vp, vp]
             fn.restype = i32
         lib.frt_mesh_sc.restype = i32
-        if lib.frt_mesh_sc() != SC:
+        lib.frt_mesh_group.restype = i32
+        if (lib.frt_mesh_sc(), lib.frt_mesh_group()) != (SC, GROUP):
             raise RuntimeError("csrc/mesh.cu and ops/mesh.py disagree on "
-                               "the supercluster size")
+                               "the supercluster or group size")
         _lib = lib
     return _lib
 
@@ -376,17 +415,35 @@ def closest_cuda(m: MeshTables, orig, dirs, keep=None):
                              or keep.device != orig.device):
         raise ValueError("mesh closest: keep must be a contiguous bool "
                          f"{tuple(m.rank.shape)} plane on {orig.device}")
+    nsc = m.box_min.shape[0]
+    ng = -(-nsc // GROUP)
+    for name, shape in (("group_min", (ng, 3)), ("group_max", (ng, 3)),
+                        ("root_min", (1, 3)), ("root_max", (1, 3))):
+        x = getattr(m, name)
+        if x is None or tuple(x.shape) != shape or not x.is_contiguous() \
+                or x.device != orig.device or x.dtype != orig.dtype:
+            raise ValueError(f"mesh closest: {name} must be a contiguous "
+                             f"{shape} {orig.dtype} tensor on {orig.device} "
+                             "(mesh.pack builds it)")
     lib = _load()
     n = orig.shape[0]
+    sfx = _SUFFIX[orig.dtype]
     with torch.cuda.device(orig.device):
         t = torch.empty(n, dtype=orig.dtype, device=orig.device)
         idx = torch.empty(n, dtype=torch.int32, device=orig.device)
+        # float32 splits the group range into parts (csrc/mesh.cu
+        # closest_split) that merge through 64-bit keys
+        split = getattr(lib, "frt_mesh_closest_split_" + sfx)(n, nsc)
+        key = torch.empty(n, dtype=torch.int64, device=orig.device) \
+            if split > 1 else None
         stream = torch.cuda.current_stream(orig.device).cuda_stream
-        err = getattr(lib, "frt_mesh_closest_" + _SUFFIX[orig.dtype])(
+        err = getattr(lib, "frt_mesh_closest_" + sfx)(
             orig.data_ptr(), dirs.data_ptr(), orig.stride(0), dirs.stride(0),
             n, m.tris.data_ptr(), m.box_min.data_ptr(), m.box_max.data_ptr(),
-            m.box_min.shape[0], None if keep is None else keep.data_ptr(),
-            t.data_ptr(), idx.data_ptr(), stream)
+            nsc, m.group_min.data_ptr(), m.group_max.data_ptr(),
+            m.root_min.data_ptr(), m.root_max.data_ptr(), split,
+            None if keep is None else keep.data_ptr(), t.data_ptr(),
+            idx.data_ptr(), None if key is None else key.data_ptr(), stream)
         LAUNCHES["mesh_closest"] += 1
     _raise_on(err, "mesh closest")
     return t, idx

@@ -354,6 +354,110 @@ def test_queries_match_pallas_interpret(monkeypatch, vmem):
     np.testing.assert_allclose(tt.numpy()[fin], jt[fin], rtol=1e-6)
 
 
+# ---------------------------------------------------------------------------
+# the closest kernel's cull: group and root boxes (ops/mesh.group_boxes)
+# ---------------------------------------------------------------------------
+
+def _group_soup(n_sc=37, seed=11):
+    """A float32 clustered soup of n_sc superclusters (two groups at 37:
+    32 members and 5), as the port's tables only."""
+    nc = 2 * n_sc
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-6, 6, (nc, 1, 3))
+    p1 = (centers + rng.normal(0, 0.5, (nc, C, 3))).reshape(-1, 3)
+    e1 = rng.normal(0, 0.4, p1.shape)
+    e2 = rng.normal(0, 0.4, p1.shape)
+    v = np.stack([p1, p1 + e1, p1 + e2], 1).reshape(nc, C * 3, 3)
+    f = lambda a: torch.from_numpy(a.astype(np.float32))
+    tir = SceneIR(meta=SceneMeta(n_triangles=nc * C, use_clusters=True,
+                                 n_clusters=nc, cluster_size=C),
+                  tri_p1=f(p1), tri_e1=f(e1), tri_e2=f(e2),
+                  cluster_min=f(v.min(1)), cluster_max=f(v.max(1)))
+    nt = nc * C
+    return tmesh.pack(tir, torch.zeros(nt, dtype=torch.int32),
+                      torch.ones(nt, dtype=torch.bool))
+
+
+def _cull_case(which, mesh_pair):
+    """(packed tables, origins, directions): the mesh scene's tables in
+    float64 with its rays, or the soup in float32 with rays aimed at it;
+    both end in dead lanes parked at FILL_ROW."""
+    if which == "mesh_torus":
+        o, d = _rays(12, 800)
+        return _packed(mesh_pair[1]), _t(o), _t(d)
+    o, d = _soup_rays(13, 600)
+    return _group_soup(), _t(o * np.float32(1.5)), _t(d)
+
+
+@pytest.mark.parametrize("which", ["mesh_torus", "soup"])
+def test_group_boxes_are_exact_bounds(mesh_pair, which):
+    """Each group box is the exact min / max of its members' boxes (the
+    last group holds only the superclusters that exist), and the root box
+    the exact min / max of them all."""
+    m, _, _ = _cull_case(which, mesh_pair)
+    nsc = m.box_min.shape[0]
+    ng = -(-nsc // tmesh.GROUP)
+    assert m.group_min.shape == m.group_max.shape == (ng, 3)
+    assert m.root_min.shape == m.root_max.shape == (1, 3)
+    for g in range(ng):
+        members = slice(g * tmesh.GROUP, min(nsc, (g + 1) * tmesh.GROUP))
+        assert torch.equal(m.group_min[g], m.box_min[members].amin(0))
+        assert torch.equal(m.group_max[g], m.box_max[members].amax(0))
+    assert torch.equal(m.root_min[0], m.box_min.amin(0))
+    assert torch.equal(m.root_max[0], m.box_max.amax(0))
+    assert all(x.dtype == m.box_min.dtype and x.is_contiguous()
+               for x in (m.group_min, m.group_max, m.root_min, m.root_max))
+
+
+@pytest.mark.parametrize("which", ["mesh_torus", "soup"])
+def test_group_cull_keeps_every_passing_pair(mesh_pair, which):
+    """The exactness of the cull: every (ray, supercluster) pair that
+    passes cluster_mask also passes the slab test of its group box and of
+    the root box, in the same arithmetic; dead lanes fail the root box."""
+    m, o, d = _cull_case(which, mesh_pair)
+    sc = tmesh.cluster_mask(m.box_min, m.box_max, o, d)
+    grp = tmesh.cluster_mask(m.group_min, m.group_max, o, d)
+    root = tmesh.cluster_mask(m.root_min, m.root_max, o, d)[:, 0]
+    s = torch.arange(sc.shape[1])
+    assert int(sc.sum()) > 100
+    assert not bool((sc & ~grp[:, s // tmesh.GROUP]).any())
+    assert not bool((sc.any(1) & ~root).any())
+    assert not bool(root[o[:, 0] >= 1e29].any())
+
+
+def _tree_walk_pairs(m, o, d):
+    """The (ray, supercluster) pairs the closest kernel evaluates: root
+    box, then group boxes, then each group's members by count."""
+    nsc = m.box_min.shape[0]
+    root = tmesh.cluster_mask(m.root_min, m.root_max, o, d)[:, 0]
+    grp = tmesh.cluster_mask(m.group_min, m.group_max, o, d)
+    sc = tmesh.cluster_mask(m.box_min, m.box_max, o, d)
+    pairs = set()
+    for g in range(grp.shape[1]):
+        for s in range(g * tmesh.GROUP, min(nsc, (g + 1) * tmesh.GROUP)):
+            live = root & grp[:, g] & sc[:, s]
+            pairs.update((int(r), s) for r in live.nonzero()[:, 0])
+    return pairs
+
+
+@pytest.mark.parametrize("which", ["mesh_torus", "soup"])
+def test_padded_groups_never_taken(mesh_pair, which):
+    """The walk over groups takes exactly the pairs cluster_mask passes:
+    no supercluster past the last one (a group's tail is not padded with
+    boxes, and an inverted box would pass the slab test) and none lost."""
+    m, o, d = _cull_case(which, mesh_pair)
+    walked = _tree_walk_pairs(m, o, d)
+    sc = tmesh.cluster_mask(m.box_min, m.box_max, o, d)
+    want = {(int(r), int(s)) for r, s in sc.nonzero()}
+    assert walked == want
+    assert max(s for _, s in walked) < m.box_min.shape[0]
+    # why not: the empty-box sentinel of a padded slot (min _BIG, max
+    # -_BIG) passes the slab test of every live ray
+    big = torch.full((1, 3), tmesh._BIG, dtype=o.dtype)
+    live = o[:, 0] < 1e29
+    assert bool(tmesh.cluster_mask(big, -big, o[live], d[live]).all())
+
+
 def test_no_fallback_off_cpu():
     """Only a CPU tensor takes a plain version: any other device launches
     the kernel or raises."""
