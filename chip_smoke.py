@@ -31,13 +31,18 @@ Phases, one line each or more:
      shape (the 144,000 rays followed by FILL_ROW rows up to the probe's
      432,128-lane bucket, as strided views of its rows), all-dead batches,
      and on the 512k-triangle x 16,384-ray soup of
-     tools/bench_mesh_stream.py; median times of both, beside two bounds:
-     the flat walk's (every slab test) and the passed pairs' alone;
+     tools/bench_mesh_stream.py (shadow also ragged, in float64 and with
+     every rank equal, so casting t ties across the split's parts); median
+     times of both, beside two bounds: the flat walk's (every slab test)
+     and the passed pairs' alone;
   8. mesh render: render_scene(mesh_torus(600, 240)) in float32, the whole
      frame in one chunk: the launch counts of that call (every kernel at
      least once), no bucket overflow, a finite canvas; the warm wall
      (median of --reps), pixels/s and traced rays/s (the probe's spawn
      counts plus the primary rays, each with one shadow ray per light);
+     then the rays of each mesh.shadow call of one more warm frame: the
+     shadow kernel on each against its plain version, bit for bit, and
+     its median time on each beside its two bounds;
   9. mesh equality: a 600x16 strip of the opaque and of the glass torus,
      the kernel frame against the plain-mesh frame and trace_bucketed
      against the unrolled trace, bit for bit;
@@ -56,6 +61,7 @@ import contextlib
 import hashlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -113,6 +119,15 @@ def pixel_rays(scene, device, rows=None):
     uv = torch.full((n, 2), 0.5, dtype=torch.float32, device=device)
     ap = torch.zeros((n, 2), dtype=torch.float32, device=device)
     return rays_for_pixels(cam_rt, px, py, uv, ap)
+
+
+def short_kernel_name(mangled):
+    """A kernel's mangled name without its anonymous namespace and its
+    parameter list: the kernel and its template arguments."""
+    ns = re.match(r"_ZN(\d+)_GLOBAL__N", mangled)
+    name = mangled[ns.end(1) + int(ns.group(1)):] if ns else mangled
+    cut = name.find("Ev")
+    return name[:cut + 2] if cut >= 0 else name
 
 
 def median_ms(fn, reps=30):
@@ -393,21 +408,26 @@ def _equal_outputs(got, want):
     return same, err
 
 
-def check_mesh_kernels(device):
-    """Each mesh kernel against its plain version, bit for bit, over the
-    case grid; returns per-kernel results at the level-0 shape."""
+def mesh_level0(device):
+    """The mesh frame's tables, its primary rays (o, d) and its level-0
+    shadow rays (so, sd): from the shading points toward the light, dead
+    lanes parked as the integrator parks them."""
     scene = mesh_torus(MW, MH)
     ir = compile_scene(scene, dtype=torch.float32, device=device)
     rt = build_statics(ir, scene.config)
-    m = rt.mesh
     o, d = pixel_rays(scene, device)
-    # the level-0 shadow rays: from the shading points toward the light,
-    # dead lanes parked as the integrator parks them
     comps = prepare_computations(ir, rt, o, d)
     so, sd = neutralize_rays(
         comps.over_point,
         normalize(ir.light_points[0, 0][None] - comps.over_point),
         comps.valid)
+    return ir, rt.mesh, o, d, so, sd
+
+
+def check_mesh_kernels(device):
+    """Each mesh kernel against its plain version, bit for bit, over the
+    case grid; returns per-kernel results at the level-0 shape."""
+    ir, m, o, d, so, sd = mesh_level0(device)
     g = torch.Generator(device=device).manual_seed(2)
     keep = mesh.pack_plane(torch.rand(ir.tri_p1.shape[0], generator=g,
                                       device=device) < 0.5, False)
@@ -415,6 +435,9 @@ def check_mesh_kernels(device):
     od = torch.where(dead[:, None], 1e30, o)
     dd = torch.where(dead[:, None], 1.0, d)
     rows = torch.cat([o, d], -1)               # strided (R, 3) views
+    srows = torch.cat([so, sd], -1)
+    sod = torch.where(dead[:, None], 1e30, so)
+    sdd = torch.where(dead[:, None], 1.0, sd)
     m64 = m._replace(**{k: getattr(m, k).double() for k in (
         "tris", "box_min", "box_max", "group_min", "group_max", "root_min",
         "root_max")})
@@ -424,6 +447,8 @@ def check_mesh_kernels(device):
     nprobe = int(np.ceil(n * PROBE_CEILING / 256.0)) * 256
     probe = torch.tensor(FILL_ROW, device=device).repeat(nprobe, 1)
     probe[:n] = rows
+    sprobe = probe.clone()
+    sprobe[:n] = srows
     all_dead = torch.tensor(FILL_ROW, device=device).repeat(16384, 1)
     cases = [
         ("closest f32", "closest", m, o, d, None),
@@ -442,6 +467,14 @@ def check_mesh_kernels(device):
         ("shadow f32", "shadow", m, so, sd, None),
         ("shadow ragged", "shadow", m, so[:n - 333], sd[:n - 333], None),
         ("shadow f64", "shadow", m64, so.double(), sd.double(), None),
+        ("shadow dead lanes", "shadow", m, sod, sdd, None),
+        ("shadow strided", "shadow", m, srows[:, :3], srows[:, 3:], None),
+        ("shadow probe shape", "shadow", m, sprobe[:, :3], sprobe[:, 3:],
+         None),
+        ("shadow all dead", "shadow", m, all_dead[:, :3], all_dead[:, 3:],
+         None),
+        ("shadow all dead f64 ragged", "shadow", m64,
+         all_dead[:999, :3].double(), all_dead[:999, 3:].double(), None),
     ]
     sir, sorig, sdirs = build_soup(device)
     smesh = mesh.pack(sir, torch.randperm(sir.tri_p1.shape[0], generator=g,
@@ -450,10 +483,25 @@ def check_mesh_kernels(device):
                                  device=device) < 0.7)
     skeep = mesh.pack_plane(torch.rand(sir.tri_p1.shape[0], generator=g,
                                        device=device) < 0.5, False)
+    smesh64 = smesh._replace(**{k: getattr(smesh, k).double() for k in (
+        "tris", "box_min", "box_max", "group_min", "group_max", "root_min",
+        "root_max")})
+    # every rank equal: the casting t decides across superclusters and
+    # across the parts of the split
+    sequal = mesh.pack(sir, torch.zeros(sir.tri_p1.shape[0],
+                                        dtype=torch.int32, device=device),
+                       torch.rand(sir.tri_p1.shape[0], generator=g,
+                                  device=device) < 0.7)
     cases += [("soup closest", "closest", smesh, sorig, sdirs, None),
               ("soup closest keep ragged", "closest", smesh, sorig[:-77],
                sdirs[:-77], skeep),
-              ("soup shadow", "shadow", smesh, sorig, sdirs, None)]
+              ("soup shadow", "shadow", smesh, sorig, sdirs, None),
+              ("soup shadow ragged", "shadow", smesh, sorig[:-77],
+               sdirs[:-77], None),
+              ("soup shadow f64", "shadow", smesh64, sorig.double(),
+               sdirs.double(), None),
+              ("soup shadow equal ranks", "shadow", sequal, sorig, sdirs,
+               None)]
     fns = {"closest": (mesh.closest_cuda, mesh.closest_plain),
            "shadow": (mesh.shadow_cuda, mesh.shadow_plain)}
     err = {"closest": 0.0, "shadow": 0.0}
@@ -498,6 +546,52 @@ def check_mesh_kernels(device):
                          "bound_by": by, "library_ms": None,
                          "bound_pairs_ms": bound_pairs}
     return out
+
+
+def frame_shadow_calls(device):
+    """(tables, origins, directions) of each mesh.shadow call of one warm
+    mesh_torus frame, copied as the call received them."""
+    calls = []
+    real = mesh.shadow_cuda
+
+    def record(m, orig, dirs):
+        calls.append((m, orig.clone(), dirs.clone()))
+        return real(m, orig, dirs)
+
+    mesh.shadow_cuda = record
+    try:
+        frame(device, scene=mesh_torus(MW, MH))
+    finally:
+        mesh.shadow_cuda = real
+    return calls
+
+
+def time_frame_shadow(calls):
+    """The shadow kernel on each in-frame launch's rays against its plain
+    version, bit for bit, then its time (median of 20 events) beside the
+    launch's two bounds; returns the sums."""
+    tot = {"ms": 0.0, "bound_ms": 0.0, "bound_pairs_ms": 0.0}
+    for i, (m, o, d) in enumerate(calls):
+        same, _ = _equal_outputs(mesh.shadow_cuda(m, o, d),
+                                 mesh.shadow_plain(m, o, d))
+        if not same:
+            raise AssertionError(f"mesh shadow != plain on launch {i} of "
+                                 "the frame")
+        ms = median_ms(lambda: mesh.shadow_cuda(m, o, d), reps=20)
+        bound, by, ops, bound_pairs, passed = mesh_bound(m, o, d, 5)
+        live = int((o[:, 0] < 1e29).sum())
+        log("mesh-frame", f"shadow launch {i}: {o.shape[0]} rays ({live} "
+            f"live): equal=True; kernel {ms:.3f} ms (median of 20); bound "
+            f"{bound:.4f} ms by {by} ({bound / ms:.2%} reached); passed "
+            f"pairs {passed}: "
+            f"bound {bound_pairs:.4f} ms ({bound_pairs / ms:.2%} reached)")
+        for k, v in (("ms", ms), ("bound_ms", bound),
+                     ("bound_pairs_ms", bound_pairs)):
+            tot[k] += v
+    log("mesh-frame", f"shadow, the frame's {len(calls)} launches: "
+        f"{tot['ms']:.3f} ms in all; bounds {tot['bound_ms']:.4f} ms (flat "
+        f"walk), {tot['bound_pairs_ms']:.4f} ms (passed pairs)")
+    return tot
 
 
 def check_mesh_strip(device, glass):
@@ -646,9 +740,12 @@ def main():
         + f" in {time.perf_counter() - t0:.2f} s")
     for name, so in libs.items():
         report = so.with_name(so.name + ".log").read_text().splitlines()
+        entry = ""
         for line in report:
-            if "registers" in line or "spill" in line:
-                log("build", f"{name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = short_kernel_name(line.split("'")[1])
+            elif "registers" in line or "spill" in line:
+                log("build", f"{name} {entry}: {line.strip()}")
 
     # 3. kernels at the level-0 shape, B from the calibration
     scene = glass_spheres(W, H)
@@ -708,6 +805,14 @@ def main():
 
     # 8. mesh render: the mesh path, counted
     mcanvas, mlaunches, mesh_wall = render_mesh(device, args.reps)
+    calls = frame_shadow_calls(device)
+    if len(calls) != mlaunches["mesh_shadow"]:
+        raise AssertionError("the recorded frame made another number of "
+                             "shadow calls than the counted one")
+    frame_tot = time_frame_shadow(calls)
+    mstats["shadow"].update(frame_ms=frame_tot["ms"],
+                            frame_bound_ms=frame_tot["bound_ms"],
+                            frame_bound_pairs_ms=frame_tot["bound_pairs_ms"])
 
     # 9. mesh equality on the card
     for glass in (False, True):

@@ -5,8 +5,10 @@ superclusters behind a per-ray slab test.
 the triangle soup as 9 component planes (9, Nsc, 128) [p1|e1|e2 x xyz],
 the AABB of each supercluster (two adjacent Morton-ordered 64-triangle
 clusters), the boxes of groups of GROUP consecutive superclusters and the
-root box over all of them (the closest kernel's cull), and per-triangle
-planes of shadow-walk rank, casts-shadow flag and (for refraction) Ni.
+root box over all of them (the kernels' cull), per-triangle planes of
+shadow-walk rank, casts-shadow flag and (for refraction) Ni, and the
+minimum rank of each supercluster and of each group (the shadow kernel's
+rank cull).
 Then:
 - `closest(m, orig, dirs, keep)`: per ray the minimum positive t and the
   lowest triangle index at that t; (inf, 0) on a miss; `keep` drops
@@ -66,12 +68,16 @@ class MeshTables(NamedTuple):
     rank: torch.Tensor           # (Nsc, SC) int32 shadow-walk rank
     cast: torch.Tensor           # (Nsc, SC) bool casts shadow
     ni: Optional[torch.Tensor]   # (Nsc, SC) Ni, for the containers walk
-    # the closest kernel's cull (group_boxes): (ceil(Nsc / GROUP), 3) group
-    # boxes and the (1, 3) root box
+    # the kernels' cull (group_boxes): (ceil(Nsc / GROUP), 3) group boxes
+    # and the (1, 3) root box
     group_min: Optional[torch.Tensor] = None
     group_max: Optional[torch.Tensor] = None
     root_min: Optional[torch.Tensor] = None
     root_max: Optional[torch.Tensor] = None
+    # the shadow kernel's rank cull (min_ranks): (Nsc,) and
+    # (ceil(Nsc / GROUP),) int32 minimum ranks
+    sc_rank: Optional[torch.Tensor] = None
+    group_rank: Optional[torch.Tensor] = None
 
 
 # ---------------------------------------------------------------------------
@@ -129,17 +135,45 @@ def group_boxes(box_min, box_max):
     return gmin, gmax, rmin, rmax
 
 
+def min_ranks(rank):
+    """The minimum of each supercluster's rank row (Nsc,) and of each group
+    of GROUP consecutive superclusters (ceil(Nsc / GROUP),), the last group
+    over the superclusters it holds. A padded triangle's INT32_MAX is
+    counted like any rank: it only lowers a minimum, which keeps the cull
+    exact."""
+    sc = rank.amin(1)
+    pad = torch.full((-sc.shape[0] % GROUP,), INT32_MAX, dtype=sc.dtype,
+                     device=sc.device)
+    return sc, torch.cat([sc, pad]).reshape(-1, GROUP).amin(1)
+
+
+_FITS_INT32 = (torch.int32, torch.int16, torch.int8, torch.uint8, torch.bool)
+
+
+def _int32_ranks(tri_rank):
+    """tri_rank as int32; raises on a value outside int32. A dtype that
+    can hold one is range-checked, which on the card costs one host sync
+    (once per pack, outside the chunk loop)."""
+    if tri_rank.dtype not in _FITS_INT32 and tri_rank.numel():
+        lo, hi = (int(x) for x in torch.aminmax(tri_rank))
+        if lo < -2**31 or hi > INT32_MAX:
+            raise ValueError(f"mesh ranks must fit in int32: [{lo}, {hi}]")
+    return tri_rank.to(torch.int32)
+
+
 def pack(ir, tri_rank, tri_shadow, tri_ni=None) -> MeshTables:
     """Pack a clustered mesh (ir.meta.use_clusters, cluster_size 64)."""
     box_min, box_max = sc_boxes(ir.cluster_min, ir.cluster_max)
+    rank = pack_plane(_int32_ranks(tri_rank), INT32_MAX)
+    sc_rank, group_rank = min_ranks(rank)
     return MeshTables(
         tris=pack_tris(ir.tri_p1, ir.tri_e1, ir.tri_e2),
-        box_min=box_min, box_max=box_max,
-        rank=pack_plane(tri_rank.to(torch.int32), INT32_MAX),
+        box_min=box_min, box_max=box_max, rank=rank,
         cast=pack_plane(tri_shadow, False),
         ni=None if tri_ni is None else pack_plane(tri_ni, 1.0),
         **dict(zip(("group_min", "group_max", "root_min", "root_max"),
-                   group_boxes(box_min, box_max))))
+                   group_boxes(box_min, box_max))),
+        sc_rank=sc_rank, group_rank=group_rank)
 
 
 # ---------------------------------------------------------------------------
@@ -352,17 +386,18 @@ def _load():
     if _lib is None:
         lib = _build.load("mesh")
         vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        rays_tree = [vp, vp, i64, i64, i64, vp, vp, vp, i32, vp, vp, vp, vp,
+                     i32]
         for sfx in _SUFFIX.values():
+            for query in ("closest", "shadow"):
+                fn = getattr(lib, f"frt_mesh_{query}_split_{sfx}")
+                fn.argtypes = [i64, i32]
+                fn.restype = i32
             fn = getattr(lib, f"frt_mesh_closest_{sfx}")
-            fn.argtypes = [vp, vp, i64, i64, i64, vp, vp, vp, i32, vp, vp,
-                           vp, vp, i32, vp, vp, vp, vp, vp]
-            fn.restype = i32
-            fn = getattr(lib, f"frt_mesh_closest_split_{sfx}")
-            fn.argtypes = [i64, i32]
+            fn.argtypes = rays_tree + [vp, vp, vp, vp, vp]
             fn.restype = i32
             fn = getattr(lib, f"frt_mesh_shadow_{sfx}")
-            fn.argtypes = [vp, vp, i64, i64, i64, vp, vp, vp, i32, vp, vp,
-                           vp, vp, vp]
+            fn.argtypes = rays_tree + [vp, vp, vp, vp, vp, vp, vp, vp]
             fn.restype = i32
         lib.frt_mesh_sc.restype = i32
         lib.frt_mesh_group.restype = i32
@@ -373,8 +408,10 @@ def _load():
     return _lib
 
 
-def _check(m: MeshTables, orig, dirs, what: str):
-    """The kernels' preconditions; raises on anything they do not take."""
+def _check(m: MeshTables, orig, dirs, what: str, shadow: bool = False):
+    """The kernels' preconditions; raises on anything they do not take.
+    Both kernels need the group and root boxes, shadow the minimum ranks
+    too (mesh.pack builds them)."""
     dt, dev = orig.dtype, orig.device
     if dt not in _SUFFIX:
         raise TypeError(f"{what}: float32 or float64 rays, got {dt}")
@@ -386,24 +423,50 @@ def _check(m: MeshTables, orig, dirs, what: str):
         raise ValueError(f"{what}: {orig.shape[0]} origins, "
                          f"{dirs.shape[0]} directions")
     nsc = m.box_min.shape[0]
-    shapes = {"tris": (9, nsc, SC), "box_min": (nsc, 3),
-              "box_max": (nsc, 3), "rank": (nsc, SC), "cast": (nsc, SC)}
-    for name, shape in shapes.items():
+    ng = -(-nsc // GROUP)
+    tables = {"tris": ((9, nsc, SC), dt), "box_min": ((nsc, 3), dt),
+              "box_max": ((nsc, 3), dt), "rank": ((nsc, SC), torch.int32),
+              "cast": ((nsc, SC), torch.bool),
+              "group_min": ((ng, 3), dt), "group_max": ((ng, 3), dt),
+              "root_min": ((1, 3), dt), "root_max": ((1, 3), dt)}
+    if shadow:
+        tables.update(sc_rank=((nsc,), torch.int32),
+                      group_rank=((ng,), torch.int32))
+    if dirs.dtype != dt:
+        raise TypeError(f"{what}: mixed dtypes {dt} and {dirs.dtype}")
+    for name, (shape, dtype) in tables.items():
         x = getattr(m, name)
-        if tuple(x.shape) != shape or not x.is_contiguous() \
-                or x.device != dev:
+        if x is None or tuple(x.shape) != shape or not x.is_contiguous() \
+                or x.device != dev or x.dtype != dtype:
             raise ValueError(f"{what}: {name} must be a contiguous {shape} "
-                             f"tensor on {dev}")
-    for x in (dirs, m.tris, m.box_min, m.box_max):
-        if x.dtype != dt:
-            raise TypeError(f"{what}: mixed dtypes {dt} and {x.dtype}")
-    if m.rank.dtype != torch.int32 or m.cast.dtype != torch.bool:
-        raise TypeError(f"{what}: rank must be int32 and cast bool")
+                             f"{dtype} tensor on {dev} (mesh.pack builds "
+                             "it)")
 
 
 def _raise_on(err: int, what: str):
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def _rays_tree(m: MeshTables, orig, dirs, split):
+    """The leading arguments of both kernel entries."""
+    return (orig.data_ptr(), dirs.data_ptr(), orig.stride(0), dirs.stride(0),
+            orig.shape[0], m.tris.data_ptr(), m.box_min.data_ptr(),
+            m.box_max.data_ptr(), m.box_min.shape[0], m.group_min.data_ptr(),
+            m.group_max.data_ptr(), m.root_min.data_ptr(),
+            m.root_max.data_ptr(), split)
+
+
+def _split(lib, query: str, m: MeshTables, orig):
+    """Parts of a launch and their merge keys: float32 splits the group
+    range (csrc/mesh.cu split_parts) and the parts merge through 64-bit
+    keys."""
+    n = orig.shape[0]
+    split = getattr(lib, f"frt_mesh_{query}_split_"
+                    + _SUFFIX[orig.dtype])(n, m.box_min.shape[0])
+    key = torch.empty(n, dtype=torch.int64, device=orig.device) \
+        if split > 1 else None
+    return split, key
 
 
 def closest_cuda(m: MeshTables, orig, dirs, keep=None):
@@ -415,33 +478,15 @@ def closest_cuda(m: MeshTables, orig, dirs, keep=None):
                              or keep.device != orig.device):
         raise ValueError("mesh closest: keep must be a contiguous bool "
                          f"{tuple(m.rank.shape)} plane on {orig.device}")
-    nsc = m.box_min.shape[0]
-    ng = -(-nsc // GROUP)
-    for name, shape in (("group_min", (ng, 3)), ("group_max", (ng, 3)),
-                        ("root_min", (1, 3)), ("root_max", (1, 3))):
-        x = getattr(m, name)
-        if x is None or tuple(x.shape) != shape or not x.is_contiguous() \
-                or x.device != orig.device or x.dtype != orig.dtype:
-            raise ValueError(f"mesh closest: {name} must be a contiguous "
-                             f"{shape} {orig.dtype} tensor on {orig.device} "
-                             "(mesh.pack builds it)")
     lib = _load()
     n = orig.shape[0]
-    sfx = _SUFFIX[orig.dtype]
     with torch.cuda.device(orig.device):
         t = torch.empty(n, dtype=orig.dtype, device=orig.device)
         idx = torch.empty(n, dtype=torch.int32, device=orig.device)
-        # float32 splits the group range into parts (csrc/mesh.cu
-        # closest_split) that merge through 64-bit keys
-        split = getattr(lib, "frt_mesh_closest_split_" + sfx)(n, nsc)
-        key = torch.empty(n, dtype=torch.int64, device=orig.device) \
-            if split > 1 else None
+        split, key = _split(lib, "closest", m, orig)
         stream = torch.cuda.current_stream(orig.device).cuda_stream
-        err = getattr(lib, "frt_mesh_closest_" + sfx)(
-            orig.data_ptr(), dirs.data_ptr(), orig.stride(0), dirs.stride(0),
-            n, m.tris.data_ptr(), m.box_min.data_ptr(), m.box_max.data_ptr(),
-            nsc, m.group_min.data_ptr(), m.group_max.data_ptr(),
-            m.root_min.data_ptr(), m.root_max.data_ptr(), split,
+        err = getattr(lib, "frt_mesh_closest_" + _SUFFIX[orig.dtype])(
+            *_rays_tree(m, orig, dirs, split),
             None if keep is None else keep.data_ptr(), t.data_ptr(),
             idx.data_ptr(), None if key is None else key.data_ptr(), stream)
         LAUNCHES["mesh_closest"] += 1
@@ -451,18 +496,19 @@ def closest_cuda(m: MeshTables, orig, dirs, keep=None):
 
 def shadow_cuda(m: MeshTables, orig, dirs):
     """shadow through the CUDA kernel (csrc/mesh.cu)."""
-    _check(m, orig, dirs, "mesh shadow")
+    _check(m, orig, dirs, "mesh shadow", shadow=True)
     lib = _load()
     n = orig.shape[0]
     with torch.cuda.device(orig.device):
         t = torch.empty(n, dtype=orig.dtype, device=orig.device)
         rank = torch.empty(n, dtype=torch.int32, device=orig.device)
+        split, key = _split(lib, "shadow", m, orig)
         stream = torch.cuda.current_stream(orig.device).cuda_stream
         err = getattr(lib, "frt_mesh_shadow_" + _SUFFIX[orig.dtype])(
-            orig.data_ptr(), dirs.data_ptr(), orig.stride(0), dirs.stride(0),
-            n, m.tris.data_ptr(), m.box_min.data_ptr(), m.box_max.data_ptr(),
-            m.box_min.shape[0], m.rank.data_ptr(), m.cast.data_ptr(),
-            t.data_ptr(), rank.data_ptr(), stream)
+            *_rays_tree(m, orig, dirs, split), m.rank.data_ptr(),
+            m.cast.data_ptr(), m.sc_rank.data_ptr(), m.group_rank.data_ptr(),
+            t.data_ptr(), rank.data_ptr(),
+            None if key is None else key.data_ptr(), stream)
         LAUNCHES["mesh_shadow"] += 1
     _raise_on(err, "mesh shadow")
     return rank, t
