@@ -46,9 +46,23 @@ Phases, one line each or more:
   9. mesh equality: a 600x16 strip of the opaque and of the glass torus,
      the kernel frame against the plain-mesh frame and trace_bucketed
      against the unrolled trace, bit for bit;
- 10. mesh output: the sha256 of the mesh frame's PPM.
-Then the compaction's device time per call from torch.profiler (after
-every wall-clock phase: the profiler leaves launches slower), the card's
+ 10. mesh output: the sha256 of the mesh frame's PPM;
+ 11. showcase render: render_scene(primitives_showcase(800, 400)) in
+     float32, the whole frame in one chunk (every analytic shape, pattern
+     and uv map, Perlin noise, a bump map and CSG): the compaction
+     launches of that call, no bucket overflow, a finite canvas; the warm
+     wall (median of --reps), pixels/s and traced rays/s;
+ 12. showcase equality: the frame with the plain compaction bit for bit
+     equal to the kernel frame, and an 800x16 strip through
+     trace_bucketed bit for bit equal to the unrolled trace;
+ 13. card against CPU: the showcase at 64x32 in float64 through
+     trace_bucketed on the card and on the CPU, within CARD_CPU_ATOL, with
+     the share of pixels past 1e-9;
+ 14. showcase output: the sha256 of the showcase frame's PPM.
+Then the compaction's device time per call from torch.profiler and one
+profiled warm showcase frame (its device events, device busy time, idle
+share against the warm wall, and top operators by device time), after
+every wall-clock phase (the profiler leaves launches slower); the card's
 nvidia-smi line, a JSON line of per-kernel results and, last, the device
 JSON line. Any failure raises and exits non-zero.
 --reps sets the number of warm frames of each render. With --profile, the
@@ -87,7 +101,9 @@ from fast_ray_tracer_tpu_torch.render.render import (
     quantize_buckets, render_scene,
 )
 from fast_ray_tracer_tpu_torch.scene.compile import compile_scene
-from fast_ray_tracer_tpu_torch.scene.demo import glass_spheres, mesh_torus
+from fast_ray_tracer_tpu_torch.scene.demo import (
+    glass_spheres, mesh_torus, primitives_showcase,
+)
 from fast_ray_tracer_tpu_torch.scene.ir import SceneIR, SceneMeta
 
 W, H = 800, 400
@@ -107,7 +123,7 @@ def log(phase, msg):
     print(f"[{phase}] {msg}", flush=True)
 
 
-def pixel_rays(scene, device, rows=None):
+def pixel_rays(scene, device, rows=None, dtype=torch.float32):
     """Primary rays of the scene's camera for image rows `rows` (all)."""
     cam = scene.camera
     ys = torch.arange(cam.height, device=device) if rows is None else \
@@ -115,9 +131,9 @@ def pixel_rays(scene, device, rows=None):
     py = ys.repeat_interleave(cam.width)
     px = torch.arange(cam.width, device=device).repeat(len(ys))
     n = px.shape[0]
-    cam_rt = build_camera(cam, dtype=torch.float32, device=device)
-    uv = torch.full((n, 2), 0.5, dtype=torch.float32, device=device)
-    ap = torch.zeros((n, 2), dtype=torch.float32, device=device)
+    cam_rt = build_camera(cam, dtype=dtype, device=device)
+    uv = torch.full((n, 2), 0.5, dtype=dtype, device=device)
+    ap = torch.zeros((n, 2), dtype=dtype, device=device)
     return rays_for_pixels(cam_rt, px, py, uv, ap)
 
 
@@ -304,9 +320,9 @@ def frame(device, compaction="auto", stats=None, scene=None):
     return canvas, time.perf_counter() - t0
 
 
-def check_strip(device):
+def check_strip(device, scene=None, phase="equal"):
     """800x16 strip: trace_bucketed == the unrolled trace, bit for bit."""
-    scene = glass_spheres(W, H)
+    scene = glass_spheres(W, H) if scene is None else scene
     ir = compile_scene(scene, dtype=torch.float32, device=device)
     rt = build_statics(ir, scene.config)
     depth = scene.config.di_path_length
@@ -317,8 +333,9 @@ def check_strip(device):
     got, ovf = trace_bucketed(ir, rt, o, d, depth, buckets)
     diff = max(float((x - y).abs().max()) for x, y in zip(exact, got))
     same = all(torch.equal(x, y) for x, y in zip(exact, got))
-    log("equal", f"800x16 strip: trace_bucketed vs trace bitwise={same} "
-        f"max_abs_diff={diff} overflow={bool(ovf)} buckets={buckets}")
+    log(phase, f"{scene.camera.width}x16 strip: trace_bucketed vs trace "
+        f"bitwise={same} max_abs_diff={diff} overflow={bool(ovf)} "
+        f"buckets={buckets}")
     if bool(ovf) or not same:
         raise AssertionError("bucketed strip differs from the unrolled trace")
 
@@ -662,6 +679,123 @@ def render_mesh(device, reps):
     return canvas, launches, wall
 
 
+# ---------------------------------------------------------------------------
+# the scene-language slice
+# ---------------------------------------------------------------------------
+
+# card against CPU, float64, showcase 64x32: the largest per-channel
+# difference allowed. Both devices run the same torch program, but the
+# card's elementwise kernels contract multiply-adds (FMA) and its atan2,
+# acos, cos and pow may round an ulp away from the CPU's; measured on an
+# NVIDIA H100 80GB HBM3 (700.00 W): at most 1.5e-13, a third of the
+# pixels bitwise equal, none past 1e-12 (PERF.md, section 6). The
+# bound is the CPU tests' bound against the JAX package.
+CARD_CPU_ATOL = 1e-9
+
+
+def render_showcase(device, reps):
+    """The showcase main path, counted: both compaction kernels must
+    launch; then the warm wall and the plain-compaction frame, bit for
+    bit."""
+    scene = primitives_showcase(W, H)
+    compact.LAUNCHES.update(compact=0, expand=0)
+    stats = {}
+    canvas, cold = frame(device, stats=stats, scene=scene)
+    launches = dict(compact.LAUNCHES)
+    log("showcase", f"{W}x{H} depth 5 float32: launches {launches}, "
+        f"buckets {stats['buckets']}, escalations {stats['escalations']}, "
+        f"exact chunks {stats['exact_chunks']}, first call {cold:.3f} s")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the showcase path never ran: "
+                             f"{launches}")
+    if stats["escalations"] or stats["exact_chunks"]:
+        raise AssertionError("bucket overflow after calibration")
+    if canvas.shape != (H, W, 3) or not np.isfinite(canvas).all():
+        raise AssertionError("showcase canvas not finite or of the wrong "
+                             "shape")
+    walls = [frame(device, scene=scene)[1] for _ in range(reps)]
+    wall = statistics.median(walls)
+    ir = compile_scene(scene, dtype=torch.float32, device=device)
+    rt = build_statics(ir, scene.config)
+    o, d = pixel_rays(scene, device)
+    spawned = torch.stack(spawn_counts(ir, rt, o, d,
+                                       scene.config.di_path_length)).tolist()
+    traced = (W * H + sum(spawned)) * (1 + ir.meta.n_lights)
+    log("showcase", f"warm wall {wall:.4f} s (median of {walls}), "
+        f"{W * H / wall:.4g} pixels/s, {traced / wall:.4g} traced rays/s "
+        f"({traced} rays: spawn counts {spawned}, one shadow ray per lane)")
+    plain, _ = frame(device, compaction="plain", scene=scene)
+    same = torch.equal(torch.from_numpy(canvas), torch.from_numpy(plain))
+    log("showcase-equal", f"kernel frame vs plain-compaction frame "
+        f"bitwise={same}")
+    if not same:
+        raise AssertionError("showcase kernel frame differs from the plain "
+                             "frame")
+    return canvas, launches, wall
+
+
+def check_card_vs_cpu(device, w=64, h=32):
+    """The showcase at w x h in float64 through trace_bucketed on the card
+    and on the CPU (one torch thread), every level in the probe's bucket;
+    the canvases within CARD_CPU_ATOL."""
+    scene = primitives_showcase(w, h)
+    depth = scene.config.di_path_length
+    buckets = [int(np.ceil(w * h * PROBE_CEILING / 256.0)) * 256] * depth
+    canvases = {}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for dev in (device, torch.device("cpu")):
+            ir = compile_scene(scene, dtype=torch.float64, device=dev)
+            rt = build_statics(ir, scene.config)
+            o, d = pixel_rays(scene, dev, dtype=torch.float64)
+            tr, ovf = trace_bucketed(ir, rt, o, d, depth, buckets)
+            if bool(ovf):
+                raise AssertionError("card-vs-CPU strip overflowed")
+            canvases[dev.type] = ((tr.a + tr.d + tr.s) / 3.0).cpu().numpy()
+    finally:
+        torch.set_num_threads(threads)
+    diff = np.abs(canvases["cuda"] - canvases["cpu"]).max(-1)
+    log("card-vs-cpu", f"showcase {w}x{h} float64: max |card - cpu| "
+        f"{diff.max():.3e}; pixels past 1e-6: {(diff > 1e-6).mean():.4%}, "
+        f"past 1e-9: {(diff > 1e-9).mean():.4%}, past 1e-12: "
+        f"{(diff > 1e-12).mean():.4%}, bitwise equal "
+        f"{(diff == 0).mean():.4%}; tolerance {CARD_CPU_ATOL}")
+    if not diff.max() <= CARD_CPU_ATOL:
+        raise AssertionError("card and CPU canvases differ past "
+                             f"{CARD_CPU_ATOL}")
+
+
+def profile_showcase(device, wall):
+    """One profiled warm showcase frame: its device events (kernels, and
+    copies and memsets apart), device busy time, idle share against the
+    unprofiled warm wall, and the top operators by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    scene = primitives_showcase(W, H)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, t = frame(device, scene=scene)
+    rows = prof.key_averages()
+    dev = [e for e in rows if e.device_type == DeviceType.CUDA]
+    copies = sum(e.count for e in dev if e.key.startswith(("Memcpy",
+                                                             "Memset")))
+    kernels = sum(e.count for e in dev) - copies
+    busy = device_us(prof) / 1e6
+    self_dev = lambda e: getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0))
+    ops = sorted((e for e in rows if e.device_type == DeviceType.CPU
+                  and e.key.startswith("aten::") and self_dev(e) > 0),
+                 key=self_dev, reverse=True)[:8]
+    top = ", ".join(f"{e.key} {self_dev(e) / 1e3:.2f} ms ({e.count} calls)"
+                    for e in ops)
+    log("showcase-profile", f"one warm frame: {kernels} kernel launches and "
+        f"{copies} copies/memsets; profiled wall {t:.4f} s, device busy "
+        f"{busy:.4f} s; unprofiled warm wall {wall:.4f} s -> device idle "
+        f"share {1 - busy / wall:.3f}; top operators by device time: {top}")
+    return kernels
+
+
 def profile_to(path, device, b0, card, wall, mesh_wall):
     """Per-kernel device times of the level-0 compaction calls (20 each)
     and of one warm frame of each render, with its device-busy share."""
@@ -825,8 +959,24 @@ def main():
         f.write(ppm)
     log("mesh-output", f"{path} sha256 {hashlib.sha256(ppm).hexdigest()}")
 
+    # 11-12. the showcase path, counted, and its equality checks
+    scanvas, slaunches, show_wall = render_showcase(device, args.reps)
+    check_strip(device, primitives_showcase(W, H), phase="showcase-equal")
+
+    # 13. card against CPU in float64
+    check_card_vs_cpu(device)
+
+    # 14. showcase output
+    ppm = construct_ppm(scanvas)
+    path = os.path.join(tempfile.gettempdir(),
+                        f"frt_primitives_showcase_{W}x{H}.ppm")
+    with open(path, "wb") as f:
+        f.write(ppm)
+    log("showcase-output", f"{path} sha256 {hashlib.sha256(ppm).hexdigest()}")
+
     kstats["compact"]["device_ms"] = compact_device_ms(
         device, W * H, b0, kstats["compact"]["ms"])
+    profile_showcase(device, show_wall)
     if args.profile:
         profile_to(args.profile, device, b0, f"{kind}; {smi}", wall,
                    mesh_wall)
@@ -841,7 +991,7 @@ def main():
              launches["expand"])):
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": count,
-                     **kstats[key]})
+                     "launches_showcase": slaunches[key], **kstats[key]})
     for name, key, replaces in (
             ("mesh_closest", "closest",
              "fast_ray_tracer_tpu/ops/mesh_pallas.py:262"),

@@ -161,6 +161,11 @@ def shadow_ranks(root, threshold: int, n_leaves: int):
             ci_ch.append((idx, np.concatenate(ch) if ch
                           else np.zeros(0, np.int32)))
             return idx
+        if node.kind == "csg":
+            ch = np.asarray([emit(node.left), emit(node.right)], np.int32)
+            idx = alloc_scalar(1, node.transform, node.leaf_id, NOBOX, 2)
+            ci_ch.append((idx, ch))
+            return idx
         box = NOBOX if node.obj_box is None else np.asarray(
             list(node.obj_box.min) + list(node.obj_box.max), np.float64)
         return alloc_scalar(2, node.transform, node.leaf_id, box, 0)

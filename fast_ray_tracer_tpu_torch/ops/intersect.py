@@ -2,17 +2,18 @@
 
 Each primitive type block is intersected as one dense batched computation
 over (rays x prims); hits reduce with masked min. Every analytic primitive
-contributes its type's maximum intersection count of t-slots (sphere 2,
-plane 1), and a mesh too small to be clustered (under 2048 triangles) one
-slot per triangle; misses are +inf, and the slot-to-primitive map is
-static per scene (`slot_tables`). Clustered meshes are queried apart from
-these slots, through ops/mesh.py.
+contributes its type's maximum intersection count of t-slots (sphere/cube
+2, plane 1, cylinder/cone/toroid 4 — src/shapes/* xs scratch sizes), and
+a mesh too small to be clustered (under 2048 triangles) one slot per
+triangle; misses are +inf, and the slot-to-primitive map is static per
+scene (`slot_tables`). Clustered meshes are queried apart from these
+slots, through ops/mesh.py. Type-specific epsilon behaviour matches the C
+code (EPSILON `equal` tests for degenerate quadratics, cap tests, the
+Möller-Trumbore determinant cutoff). CSG trees filter their slots with the
+reference's truth tables (`apply_csg_filter`).
 
 Arithmetic is written term by term (ops/vec.py, ops/mesh.py), so a lane's
 result does not depend on the batch it is traced in.
-
-The port intersects spheres, planes and triangles; the other analytic
-shapes come in a later slice and raise NotImplementedError here.
 """
 
 from __future__ import annotations
@@ -24,20 +25,13 @@ import torch
 
 from fast_ray_tracer_tpu_torch.constants import EPSILON
 from fast_ray_tracer_tpu_torch.ops.mesh import moller_trumbore
+from fast_ray_tracer_tpu_torch.ops.quartic import solve_quartic
 from fast_ray_tracer_tpu_torch.ops.vec import dot3
 from fast_ray_tracer_tpu_torch.scene import ir as IR
 from fast_ray_tracer_tpu_torch.scene.ir import SceneIR
 
-_PORTED_TYPES = (IR.SPHERE, IR.PLANE)
 _INT32_MAX = 2**31 - 1
 _DEAD_ORIGIN = 1e30   # dead-lane sentinel: misses every cluster AABB
-
-
-def check_ported_types(meta) -> None:
-    for typ, _, _ in meta.type_ranges:
-        if typ not in _PORTED_TYPES:
-            raise NotImplementedError(
-                f"{IR.ANALYTIC_TYPE_NAMES[typ]} primitives are not ported yet")
 
 
 def slot_tables(meta) -> np.ndarray:
@@ -85,6 +79,130 @@ def _plane_t(o, d):
     return torch.where(ok, t, torch.inf)[..., None]
 
 
+def _cube_t(o, d):
+    """src/shapes/cube.c slab test, with its inf handling."""
+    def axis(oc, dc):
+        tmin_n = -1.0 - oc
+        tmax_n = 1.0 - oc
+        use_div = dc.abs() >= EPSILON
+        safe = torch.where(use_div, dc, 1.0)
+        tmin = torch.where(use_div, tmin_n / safe,
+                           torch.where(tmin_n < 0, -torch.inf, torch.inf))
+        tmax = torch.where(use_div, tmax_n / safe,
+                           torch.where(tmax_n < 0, -torch.inf, torch.inf))
+        return torch.minimum(tmin, tmax), torch.maximum(tmin, tmax)
+
+    xmin, xmax = axis(o[..., 0], d[..., 0])
+    ymin, ymax = axis(o[..., 1], d[..., 1])
+    zmin, zmax = axis(o[..., 2], d[..., 2])
+    tmin = torch.maximum(torch.maximum(xmin, ymin), zmin)
+    tmax = torch.minimum(torch.minimum(xmax, ymax), zmax)
+    ok = tmin <= tmax
+    return torch.stack([torch.where(ok, tmin, torch.inf),
+                        torch.where(ok, tmax, torch.inf)], -1)
+
+
+def _quadratic_pair(a, b, c, ok):
+    """(lo, hi) roots of a t^2 + b t + c where `ok` (a != 0, disc >= 0),
+    with the double-where guard on the sqrt."""
+    disc = b * b - 4.0 * a * c
+    pos = disc > 0.0
+    sq = torch.where(pos, torch.sqrt(torch.where(pos, disc, 1.0)), 0.0)
+    safe_a = torch.where(ok, a, 1.0)
+    t0 = (-b - sq) / (2.0 * safe_a)
+    t1 = (-b + sq) / (2.0 * safe_a)
+    return torch.minimum(t0, t1), torch.maximum(t0, t1), ok & (disc >= 0.0)
+
+
+def _caps(o, d, mn, mx, closed, r_min, r_max):
+    """End-cap hits at y = mn and y = mx of a cylinder (radius^2 1) or a
+    cone (radius^2 |y|): t where x^2 + z^2 <= the cap's radius^2."""
+    dy_ok = d[..., 1].abs() >= EPSILON
+    safe_dy = torch.where(dy_ok, d[..., 1], 1.0)
+    cap_ok = closed & dy_ok
+    out = []
+    for y, r2 in ((mn, r_min), (mx, r_max)):
+        t = (y - o[..., 1]) / safe_dy
+        x = o[..., 0] + t * d[..., 0]
+        z = o[..., 2] + t * d[..., 2]
+        out.append(torch.where(cap_ok & (x * x + z * z <= r2), t, torch.inf))
+    return out
+
+
+def _cylinder_t(o, d, params):
+    """src/shapes/cylinder.c:42-87 — body quadratic + caps."""
+    mn, mx = params[..., 0], params[..., 1]
+    closed = params[..., 2] > 0.5
+    a = d[..., 0] * d[..., 0] + d[..., 2] * d[..., 2]
+    b = 2.0 * (o[..., 0] * d[..., 0] + o[..., 2] * d[..., 2])
+    c = o[..., 0] * o[..., 0] + o[..., 2] * o[..., 2] - 1.0
+    lo, hi, ok = _quadratic_pair(a, b, c, a.abs() >= EPSILON)
+    y0 = o[..., 1] + lo * d[..., 1]
+    y1 = o[..., 1] + hi * d[..., 1]
+    body0 = torch.where(ok & (mn <= y0) & (y0 <= mx), lo, torch.inf)
+    body1 = torch.where(ok & (mn <= y1) & (y1 <= mx), hi, torch.inf)
+    cap0, cap1 = _caps(o, d, mn, mx, closed, 1.0, 1.0)
+    return torch.stack([body0, body1, cap0, cap1], -1)
+
+
+def _cone_t(o, d, params):
+    """src/shapes/cone.c:42-97 — double cone + caps (|y| cap radius). The
+    body bounds are strict (cone.c:82-89), and a ray parallel to the
+    surface (a == 0) takes the linear root (cone.c:60-70)."""
+    mn, mx = params[..., 0], params[..., 1]
+    closed = params[..., 2] > 0.5
+    a = d[..., 0] * d[..., 0] + d[..., 2] * d[..., 2] - d[..., 1] * d[..., 1]
+    b = 2.0 * (o[..., 0] * d[..., 0] + o[..., 2] * d[..., 2]
+               - o[..., 1] * d[..., 1])
+    c = o[..., 0] * o[..., 0] + o[..., 2] * o[..., 2] - o[..., 1] * o[..., 1]
+
+    a_zero = a.abs() < EPSILON
+    b_zero = b.abs() < EPSILON
+    t_lin = -c / torch.where(b_zero, 1.0, 2.0 * b)
+    lin0 = torch.where(a_zero & ~b_zero, t_lin, torch.inf)
+
+    lo, hi, ok = _quadratic_pair(a, b, c, ~a_zero)
+    y0 = o[..., 1] + lo * d[..., 1]
+    y1 = o[..., 1] + hi * d[..., 1]
+    body0 = torch.where(ok & (mn < y0) & (y0 < mx), lo, torch.inf)
+    body1 = torch.where(ok & (mn < y1) & (y1 < mx), hi, torch.inf)
+    slot0 = torch.where(a_zero, lin0, body0)
+    slot1 = torch.where(a_zero, torch.inf, body1)
+    cap0, cap1 = _caps(o, d, mn, mx, closed, mn.abs(), mx.abs())
+    return torch.stack([slot0, slot1, cap0, cap1], -1)
+
+
+def _toroid_t(o, d, params):
+    """src/shapes/toroid.c:14-52 — the quartic, solved in float64 whatever
+    the frame's dtype (on the H100 that is real float64 at half the
+    float32 rate)."""
+    dtype = o.dtype
+    o64, d64 = o.double(), d.double()
+    r1 = params[..., 0].double()
+    r2 = params[..., 1].double()
+    sum_d_sq = dot3(d64, d64)
+    e = dot3(o64, o64) - r1 * r1 - r2 * r2
+    f = dot3(o64, d64)
+    four_a_sq = 4.0 * r1 * r1
+    oy, dy = o64[..., 1], d64[..., 1]
+    c0 = e * e - four_a_sq * (r2 * r2 - oy * oy)
+    c1 = 4.0 * f * e + 2.0 * four_a_sq * oy * dy
+    c2 = 2.0 * sum_d_sq * e + 4.0 * f * f + four_a_sq * dy * dy
+    c3 = 4.0 * sum_d_sq * f
+    c4 = sum_d_sq * sum_d_sq
+    return solve_quartic(c0, c1, c2, c3, c4).to(dtype)
+
+
+_LOCAL_T = {
+    IR.SPHERE: lambda o, d, params: _sphere_t(o, d),
+    IR.PLANE: lambda o, d, params: _plane_t(o, d),
+    IR.CUBE: lambda o, d, params: _cube_t(o, d),
+    IR.CYLINDER: _cylinder_t,
+    IR.CONE: _cone_t,
+    IR.TOROID: _toroid_t,
+}
+
+
 def _triangle_t(orig, dirs, p1, e1, e2):
     """Möller-Trumbore (src/shapes/triangle.c:10-44), world space.
     orig/dirs: (R, 3); p1/e1/e2: (N, 3) -> t (R, N), +inf where the ray
@@ -119,7 +237,6 @@ def intersect_candidates(ir: SceneIR, orig, dirs) -> torch.Tensor:
 
     Slot order matches slot_tables(meta)."""
     meta = ir.meta
-    check_ported_types(meta)
     parts = []
     for typ, start, count in meta.type_ranges:
         inv = ir.inv_tf[start:start + count]          # (N,4,4)
@@ -130,7 +247,8 @@ def intersect_candidates(ir: SceneIR, orig, dirs) -> torch.Tensor:
         # object-space rays (R, N, 3): o_i = sum_j lin[i, j] * orig_j + t_i
         o = dot3(lin, ob) + trans
         d = dot3(lin, db)
-        t = _sphere_t(o, d) if typ == IR.SPHERE else _plane_t(o, d)
+        params = ir.prim_params[start:start + count][None]   # (1,N,4)
+        t = _LOCAL_T[typ](o, d, params)
         parts.append(t.reshape(t.shape[0], -1))
     if meta.n_triangles and not meta.use_clusters:
         parts.append(_triangle_t(orig, dirs, ir.tri_p1, ir.tri_e1,
@@ -247,3 +365,114 @@ def shadow_components(t_cand, slot_rank, slot_shadow_mask):
     sel = valid & (rank == min_rank[:, None]) & slot_shadow_mask[None]
     cast_t = torch.where(sel, tpos, torch.inf).amin(-1)
     return min_rank, cast_t
+
+
+# ---------------------------------------------------------------------------
+# CSG filtering
+# ---------------------------------------------------------------------------
+
+def csg_static_tables(meta, slot_prim: np.ndarray, prim_csg, prim_anc,
+                      prim_side):
+    """Static per-tree slot lists and the postorder filter program, as
+    host numpy arrays (`csg_device_tables` moves them to a device).
+
+    prim_csg/prim_anc/prim_side are sequences of Python ints (arbitrary
+    precision, so trees of any node count): the per-node membership and
+    side bits are resolved here into static (K,) bool arrays per program
+    entry."""
+    trees = []
+    slot_csg = np.asarray([prim_csg[p] for p in slot_prim], np.int64)
+    for t, prog in enumerate(meta.csg_trees):
+        slots = np.nonzero(slot_csg == t)[0].astype(np.int32)
+        tree_prims = slot_prim[slots]
+        entries = []
+        for e in prog:
+            if e[0] == "c":
+                _, nid, op = e
+                in_node = np.asarray(
+                    [(prim_anc[p] >> nid) & 1 == 1 for p in tree_prims])
+                lhit = np.asarray(
+                    [(prim_side[p] >> nid) & 1 == 0 for p in tree_prims])
+                entries.append(("c", in_node, lhit, op))
+            else:
+                # branch index per tree slot (-1 = not under this group)
+                branch = np.full(len(slots), -1, np.int32)
+                for b, prims in enumerate(e[1]):
+                    for prim in prims:
+                        branch[tree_prims == prim] = b
+                entries.append(("g", len(e[1]), branch))
+        trees.append((slots, tuple(entries)))
+    return trees
+
+
+def csg_device_tables(tables, device):
+    """csg_static_tables' arrays as tensors on `device` (int64 indices)."""
+    dev = lambda a, dt=None: torch.as_tensor(a, dtype=dt, device=device)
+    out = []
+    for slots, prog in tables:
+        entries = tuple(
+            ("c", dev(e[1]), dev(e[2]), e[3]) if e[0] == "c"
+            else ("g", e[1], dev(e[2], torch.int64)) for e in prog)
+        out.append((dev(slots, torch.int64), entries))
+    return tuple(out)
+
+
+def apply_csg_filter(t_cand, csg_tables, shadow: bool = False):
+    """Kill the intersections the csg truth tables disallow
+    (csg_filter_intersections, src/shapes/csg.c:27-125).
+
+    Per tree (csg_device_tables): sort the tree's candidate ts ascending,
+    stably, so exact ties keep slot order (misses, +inf, sort last), then
+    run the tree's postorder program: at a csg node a surviving hit
+    toggles the node's in-left/in-right state and is kept iff the op's
+    truth table allows it; children filter their own hits before the
+    parent sees them, as the recursive csg_local_intersect does.
+
+    shadow=True also applies the reference's stop_after_first_hit group
+    truncation inside csg trees (group.c:104-123): at each internal group,
+    child subtrees after the first one that produced a t > 0 hit
+    contribute nothing (is_shadowed passes true, renderer.c:73-93).
+
+    The JAX package has a second, sort-free pairwise form for trees of up
+    to 16 slots, because variadic sorts were slow on the TPU; it yields
+    the same stable (t, slot) order, so one sorted form serves here."""
+    out = None
+    for slots, prog in csg_tables:
+        if slots.shape[0] == 0:
+            continue
+        if out is None:
+            out = t_cand.clone()
+        ts_s, order = torch.sort(t_cand[:, slots], dim=-1, stable=True)
+        alive = torch.isfinite(ts_s)
+        for e in prog:
+            if e[0] == "g":
+                if not shadow:
+                    continue
+                _, n_branches, branch = e
+                branch_s = branch[order]                     # (R,K)
+                stopped = torch.zeros_like(alive[:, 0])
+                for b in range(n_branches):
+                    member = branch_s == b
+                    alive = alive & ~(member & stopped[:, None])
+                    stopped = stopped | (member & alive
+                                         & (ts_s > 0.0)).any(-1)
+                continue
+            _, in_node_static, lhit_static, op = e
+            in_node = alive & in_node_static[order]
+            lhit = lhit_static[order]
+            l_tog = (in_node & lhit).to(torch.int32)
+            r_tog = (in_node & ~lhit).to(torch.int32)
+            inl = (l_tog.cumsum(-1) - l_tog) % 2 == 1
+            inr = (r_tog.cumsum(-1) - r_tog) % 2 == 1
+            if op == 0:        # union
+                allowed = (lhit & ~inr) | (~lhit & ~inl)
+            elif op == 1:      # intersection
+                allowed = (lhit & inr) | (~lhit & inl)
+            else:              # difference
+                allowed = (lhit & ~inr) | (~lhit & inl)
+            alive = alive & (allowed | ~in_node)
+        ts_s = torch.where(alive, ts_s, torch.inf)
+        # back to slot order through the sort's permutation
+        out.index_copy_(1, slots, torch.empty_like(ts_s).scatter_(
+            1, order, ts_s))
+    return t_cand if out is None else out

@@ -25,9 +25,9 @@ import torch
 from fast_ray_tracer_tpu_torch.constants import EPSILON
 from fast_ray_tracer_tpu_torch.ops import compact, mesh
 from fast_ray_tracer_tpu_torch.ops.intersect import (
-    Hit, closest_hit, containers_n1_n2, intersect_candidates,
-    neutralize_rays, shadow_components, shadow_hit_early_exit, slot_tables,
-    triangle_uv_at,
+    Hit, apply_csg_filter, closest_hit, containers_n1_n2, csg_device_tables,
+    csg_static_tables, intersect_candidates, neutralize_rays,
+    shadow_components, shadow_hit_early_exit, slot_tables, triangle_uv_at,
 )
 from fast_ray_tracer_tpu_torch.ops.patterns import (
     ShapeCtx, build_shape_ctx, eval_pattern,
@@ -79,14 +79,21 @@ class RenderStatics(NamedTuple):
     slot_rank: torch.Tensor      # (H,) int64 shadow-walk rank per slot
     prim_ni: torch.Tensor        # (N_prims,) refractive index per prim
     mesh: Optional[mesh.MeshTables]   # clustered mesh (use_clusters only)
+    csg_tables: tuple            # per csg tree: (slots, filter program)
     cfg: ConfigDesc
 
 
 def build_statics(ir: SceneIR, cfg: ConfigDesc) -> RenderStatics:
     meta = ir.meta
+    slot_np = slot_tables(meta)
+    slot_prim = torch.as_tensor(slot_np).to(ir.inv_tf.device)
+    csg_tables = ()
     if meta.has_csg:
-        raise NotImplementedError("CSG is not ported yet")
-    slot_prim = torch.as_tensor(slot_tables(meta)).to(ir.inv_tf.device)
+        # static host tables from the Python-int tags in meta, moved to the
+        # device once; triangles take part like any other leaf
+        csg_tables = csg_device_tables(csg_static_tables(
+            meta, slot_np, meta.csg_prim_leaf, meta.csg_prim_anc,
+            meta.csg_prim_side), ir.inv_tf.device)
     prim_mat = torch.cat([ir.material_id, ir.tri_material_id])
     packed = None
     if meta.use_clusters:
@@ -99,7 +106,8 @@ def build_statics(ir: SceneIR, cfg: ConfigDesc) -> RenderStatics:
         slot_prim=slot_prim, prim_mat=prim_mat,
         slot_shadow=ir.mat_casts_shadow[prim_mat[slot_prim]],
         slot_rank=ir.prim_shadow_rank[slot_prim],
-        prim_ni=ir.mat_Ni[prim_mat], mesh=packed, cfg=cfg)
+        prim_ni=ir.mat_Ni[prim_mat], mesh=packed, csg_tables=csg_tables,
+        cfg=cfg)
 
 
 def closest_query(ir: SceneIR, rt: RenderStatics, orig, dirs):
@@ -107,6 +115,8 @@ def closest_query(ir: SceneIR, rt: RenderStatics, orig, dirs):
     Returns (Hit, t_cand) — t_cand feeds the containers walk."""
     meta = ir.meta
     t_cand = intersect_candidates(ir, orig, dirs)
+    if meta.has_csg:
+        t_cand = apply_csg_filter(t_cand, rt.csg_tables)
     hit = closest_hit(t_cand, rt.slot_prim)
     if not meta.use_clusters:
         return hit, t_cand
@@ -168,7 +178,8 @@ def prepare_computations(ir: SceneIR, rt: RenderStatics, orig,
     else:
         u = v = torch.zeros_like(t)
 
-    normalv = normal_at(ir, ctx, prim, p, u, v)
+    bump_pid = ir.mat_map[mat, IR.SLOT_BUMP] if meta.any_bump else None
+    normalv = normal_at(ir, ctx, prim, p, u, v, mat_bump_pid=bump_pid)
     inside = dot3(normalv, eyev) < 0.0
     normalv = torch.where(inside[:, None], -normalv, normalv)
     reflectv = dirs - normalv * (2.0 * dot3(dirs, normalv))[:, None]
@@ -242,6 +253,10 @@ def is_shadowed(ir: SceneIR, rt: RenderStatics, light_pts, p, active):
             o, d, active[:, None].expand(R, S).reshape(R * S))
     df = dist.reshape(R * S)
     t_cand = intersect_candidates(ir, o, d)
+    if ir.meta.has_csg:
+        # is_shadowed passes stop_after_first_hit, which truncates group
+        # walks inside csg trees (renderer.c:73-93)
+        t_cand = apply_csg_filter(t_cand, rt.csg_tables, shadow=True)
     if not ir.meta.use_clusters:
         shadowed = shadow_hit_early_exit(t_cand, rt.slot_rank,
                                          rt.slot_shadow, df)

@@ -1,26 +1,31 @@
 """Scene compiler: SceneDesc -> SceneIR tensors.
 
 The numpy table construction of the JAX package's `compile_scene`, for the
-scenes the port renders: analytic primitives under any nesting of groups,
-triangles and smooth triangles, OBJ meshes (scene/obj_loader.py), large
-meshes Morton-ordered into 64-triangle clusters, materials, procedural
-patterns with their children, and point lights. Transform chains are
+scenes the port renders: the six analytic shapes under any nesting of
+groups and CSG trees, triangles and smooth triangles, OBJ meshes
+(scene/obj_loader.py), large meshes Morton-ordered into 64-triangle
+clusters (never those inside a CSG tree), materials, procedural patterns
+and uv maps with their children, and point lights. Transform chains are
 composed and inverted on the host, group hierarchies dissolve into
 per-leaf world->object inverses, triangles are pre-transformed to world
 space, and the post-divide shadow-walk rank of every leaf is recovered by
 simulating the reference's BVH build (scene/divide.py, through its C++
-copy in native/). The tables are byte-identical to the JAX package's;
-only the final wrap differs: `SceneIR(...).to(device, dtype)`.
+copy in native/). Each CSG tree becomes one shadow-walk leaf, its leaves
+tagged with (tree, ancestor mask, side mask) and the tree with a
+postorder filter program (`_csg_prog`). The tables are byte-identical to
+the JAX package's; only the final wrap differs:
+`SceneIR(...).to(device, dtype)`.
 
 Not ported yet (each raises NotImplementedError): texture patterns
-(also texture maps named in an MTL file), CSG, the XYZ and LAB input
-color spaces, and area, circle and hemisphere lights.
+(also texture maps named in an MTL file), the XYZ and LAB input color
+spaces, and area, circle and hemisphere lights.
 """
 
 from __future__ import annotations
 
+import copy
 import math
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -101,14 +106,21 @@ class _Tables:
         self.a_inv: List[np.ndarray] = []
         self.a_params: List[List[float]] = []
         self.a_mat: List[int] = []
+        self.a_csg: List[Tuple[int, int, int]] = []   # (tree, anc, side)
         self.a_doc: List[int] = []        # document-order leaf id per prim
         # triangles: per-triangle rows (`triangle` shapes) of
-        # (p1, e1, e2, n1, n2, n3, t1, t2, t3, use_tex, mat), and bulk
-        # blocks of column arrays (OBJ meshes, scene/obj_loader.py)
+        # (p1, e1, e2, n1, n2, n3, t1, t2, t3, use_tex, mat, csg tree,
+        # side, anc), and bulk blocks of column arrays (OBJ meshes,
+        # scene/obj_loader.py)
         self.t_rows: List[Tuple] = []
         self.t_doc: List[int] = []
         self.t_blocks: List[dict] = []
         self.next_leaf = 0
+        # csg trees: internal nodes (nid, depth, op), the pre-divide
+        # simulation subtree and nid -> op, per tree
+        self.csg_trees: List[Tuple] = []
+        self.csg_div_roots: List[div.Node] = []
+        self.csg_node_ops: List[Dict[int, int]] = []
         self.m_rows: List[dict] = []
         self.p_rows: List[dict] = []
 
@@ -176,7 +188,8 @@ class _Tables:
 
 
 def _walk(shape: ShapeDesc, parent_m: np.ndarray, tables: _Tables,
-          inherited_mat: Optional[int], nodes: List[div.Node]) -> None:
+          inherited_mat: Optional[int], nodes: List[div.Node],
+          csg_id: int = -1, csg_side: int = 0) -> None:
     """Dissolve the shape tree into flat leaf rows. `nodes` is the parent's
     children list in the divide-simulation tree (local transforms only),
     used to recover the post-divide shadow-walk leaf ordering."""
@@ -188,16 +201,42 @@ def _walk(shape: ShapeDesc, parent_m: np.ndarray, tables: _Tables,
         node = div.Node(kind="group", transform=m_flat)
         nodes.append(node)
         for child in shape.children:
-            _walk(child, m_world, tables, inherited_mat, node.children)
+            _walk(child, m_world, tables, inherited_mat, node.children,
+                  csg_id, csg_side)
+        return
+    if shape.kind == "csg":
+        # one csg tree = ONE shadow-walk leaf; leaf prims carry the tree id
+        # and their root-to-leaf path bits for the truth-table filter
+        tree_id = len(tables.csg_trees)
+        tree_nodes: List[Tuple[int, int, int]] = []
+        doc = tables.next_leaf
+        tables.next_leaf += 1
+        node = _walk_csg_child(shape, parent_m, tables, tree_id, 0, 0,
+                               [0], 0, inherited_mat, tree_nodes, doc)
+        nodes.append(node)
+        tables.csg_trees.append(tuple(tree_nodes))
+        tables.csg_div_roots.append(node)
+        tables.csg_node_ops.append({nid: op for nid, _, op in tree_nodes})
         return
     if shape.kind == "obj":
-        load_obj_into(shape, m_world, tables, nodes, m_flat)
+        load_obj_into(shape, m_world, tables, csg_id, csg_side, nodes, m_flat)
         return
+    doc = tables.next_leaf
+    tables.next_leaf += 1
+    nodes.append(_add_leaf(shape, m_world, m_flat, tables, csg_id, 0,
+                           csg_side, inherited_mat, doc))
+
+
+def _add_leaf(shape: ShapeDesc, m_world: np.ndarray, m_flat: List[float],
+              tables: _Tables, tree_id: int, anc: int, side: int,
+              inherited_mat: Optional[int], doc: int) -> div.Node:
+    """Append one primitive or triangle row (document leaf `doc`, csg tags
+    (tree_id, anc, side)) and return its divide-simulation leaf, tagged
+    with its row ('a' analytic / 't' triangle: the leaf tags of the csg
+    filter programs)."""
     if shape.kind not in _KIND_TO_TYPE and shape.kind not in (
             "triangle", "smooth_triangle"):
-        raise NotImplementedError(
-            f"shape kind {shape.kind!r} is not ported yet")
-
+        raise ValueError(f"unknown shape kind {shape.kind!r}")
     mat_id = (tables.add_material(shape.material)
               if shape.material is not None else
               (inherited_mat if inherited_mat is not None
@@ -226,14 +265,14 @@ def _walk(shape: ShapeDesc, parent_m: np.ndarray, tables: _Tables,
         t2 = shape.t2[:2] if use_tex else (0.0, 0.0)
         t3 = shape.t3[:2] if use_tex else (0.0, 0.0)
         tables.t_rows.append((p1, p2 - p1, p3 - p1, n1, n2, n3,
-                              t1, t2, t3, use_tex, mat_id))
-        tables.t_doc.append(tables.next_leaf)
-        nodes.append(div.Node(
-            kind="triangle", transform=m_flat, leaf_id=tables.next_leaf,
+                              t1, t2, t3, use_tex, mat_id, tree_id, side,
+                              anc))
+        tables.t_doc.append(doc)
+        return div.Node(
+            kind="triangle", transform=m_flat, leaf_id=doc,
+            tag=("t", len(tables.t_rows) - 1),
             obj_box=div.leaf_box("triangle",
-                                 points=[shape.p1, shape.p2, shape.p3])))
-        tables.next_leaf += 1
-        return
+                                 points=[shape.p1, shape.p2, shape.p3]))
     params = [0.0, 0.0, 0.0, 0.0]
     if shape.kind in ("cylinder", "cone"):
         params = [shape.minimum, shape.maximum,
@@ -244,12 +283,130 @@ def _walk(shape: ShapeDesc, parent_m: np.ndarray, tables: _Tables,
     tables.a_inv.append(np.linalg.inv(m_world))
     tables.a_params.append(params)
     tables.a_mat.append(mat_id)
-    tables.a_doc.append(tables.next_leaf)
-    nodes.append(div.Node(
-        kind=shape.kind, transform=m_flat, leaf_id=tables.next_leaf,
+    tables.a_csg.append((tree_id, anc, side))
+    tables.a_doc.append(doc)
+    return div.Node(
+        kind=shape.kind, transform=m_flat, leaf_id=doc,
+        tag=("a", len(tables.a_csg) - 1),
         obj_box=div.leaf_box(shape.kind, minimum=shape.minimum,
-                             maximum=shape.maximum, r1=shape.r1, r2=shape.r2)))
-    tables.next_leaf += 1
+                             maximum=shape.maximum, r1=shape.r1, r2=shape.r2))
+
+
+_CSG_OPS = {"union": 0, "intersection": 1, "difference": 2}
+
+
+def _walk_csg_child(sub: ShapeDesc, parent_m: np.ndarray, tables: _Tables,
+                    tree_id: int, anc: int, side: int, nid_alloc: List[int],
+                    depth: int, inherited_mat: Optional[int],
+                    tree_nodes: List, doc: int) -> div.Node:
+    """Walk a node of a csg tree. Internal csg nodes get unique ids from
+    `nid_alloc`; leaves are tagged (tree_id, ancestor bitmask, side
+    bitmask: bit nid set = right child of node nid), so sibling subtrees
+    under a group child stay distinct (the reference filters each nested
+    csg's own hits before the group merge — csg_local_intersect,
+    src/shapes/csg.c:73-125). All leaves share ONE document leaf id `doc`
+    (the whole tree is a single shadow-walk leaf)."""
+    m_local = compose_chain(sub.transform)
+    m_world = parent_m @ m_local
+    m_flat = m_local.ravel().tolist()
+
+    if sub.kind == "csg":
+        # node ids are unbounded: the masks are Python ints end to end
+        # (csg_static_tables resolves them to static bool tables)
+        nid = nid_alloc[0]
+        nid_alloc[0] += 1
+        tree_nodes.append((nid, depth, _CSG_OPS[sub.op]))
+        mat = (tables.add_material(sub.material)
+               if sub.material is not None else inherited_mat)
+        node = div.Node(kind="csg", transform=m_flat, leaf_id=doc, tag=nid)
+        node.left = _walk_csg_child(sub.left, m_world, tables, tree_id,
+                                    anc | (1 << nid), side, nid_alloc,
+                                    depth + 1, mat, tree_nodes, doc)
+        node.right = _walk_csg_child(sub.right, m_world, tables, tree_id,
+                                     anc | (1 << nid), side | (1 << nid),
+                                     nid_alloc, depth + 1, mat, tree_nodes,
+                                     doc)
+        return node
+
+    if sub.kind == "group":
+        node = div.Node(kind="group", transform=m_flat, leaf_id=doc)
+        for child in sub.children:
+            node.children.append(_walk_csg_child(
+                child, m_world, tables, tree_id, anc, side, nid_alloc,
+                depth, inherited_mat, tree_nodes, doc))
+        return node
+
+    if sub.kind == "obj":
+        # the reference's csg() takes any shape, OBJ groups too
+        # (src/shapes/csg.c:166-206): the mesh's triangles become leaves of
+        # this tree. The csg filter runs over dense candidate slots, so
+        # compile_scene keeps csg meshes unclustered.
+        tmp: List[div.Node] = []
+        load_obj_into(sub, m_world, tables, tree_id, side, tmp, m_flat,
+                      csg_anc=anc, csg_doc=doc, inherited_mat=inherited_mat)
+        node = tmp[0]
+        node.leaf_id = doc
+        return node
+
+    return _add_leaf(sub, m_world, m_flat, tables, tree_id, anc, side,
+                     inherited_mat, doc)
+
+
+def _leaf_tags(node: div.Node, out: List) -> None:
+    """Collect leaf tags: ('a', analytic row), ('t', triangle row) or
+    ('b', block, local) — resolved to final global prim ids at the end of
+    compile_scene (analytic rows are type-sorted; triangle and block rows
+    follow the analytic block)."""
+    if node.kind == "csg":
+        _leaf_tags(node.left, out)
+        _leaf_tags(node.right, out)
+    elif node.kind == "group":
+        for c in node.children:
+            _leaf_tags(c, out)
+    elif node.kind == "leafblock":
+        out.extend(node.block_tags)
+    else:
+        out.append(node.tag)
+
+
+def _csg_prog(root: div.Node, nid_ops: Dict[int, int], threshold: int):
+    """Post-divide filter program for one csg tree, POSTORDER entries
+
+      ("c", nid, op)   - truth-table filter at csg node `nid`
+      ("g", branches)  - shadow-ray truncation point: `branches` is a
+                         tuple of per-child-subtree leaf-tag tuples in
+                         post-divide child order. With stop_after_first_hit
+                         the reference's group walk stops after the first
+                         child subtree that returned a t > 0 hit
+                         (src/shapes/group.c:104-123), so later branches
+                         contribute nothing to the csg filter on shadow
+                         rays (and everything on primary rays).
+
+    The divide pass reorders and nests groups inside the tree as the
+    reference does (csg_divide recurses into children,
+    src/shapes/csg.c:141-146), so the truncation points match its
+    post-divide tree."""
+    node = copy.deepcopy(root)
+    div.expand_leafblocks(node)     # csg obj meshes: per-triangle leaves
+    div.divide(node, threshold)
+    prog: List[Tuple] = []
+
+    def walk(n: div.Node):
+        if n.kind == "csg":
+            walk(n.left)
+            walk(n.right)
+            prog.append(("c", n.tag, nid_ops[n.tag]))
+        elif n.kind == "group":
+            branches = []
+            for c in n.children:
+                walk(c)
+                tags: List = []
+                _leaf_tags(c, tags)
+                branches.append(tuple(tags))
+            prog.append(("g", tuple(branches)))
+
+    walk(node)
+    return tuple(prog)
 
 
 def compile_scene(scene: SceneDesc, dtype=torch.float32,
@@ -264,6 +421,10 @@ def compile_scene(scene: SceneDesc, dtype=torch.float32,
     for shape in scene.world:
         _walk(shape, np.eye(4), tables, inherited_mat=None,
               nodes=root.children)
+
+    # csg filter programs from the pre-divide tree copies
+    csg_progs = [_csg_prog(r, ops, scene.config.divide_threshold)
+                 for r, ops in zip(tables.csg_div_roots, tables.csg_node_ops)]
 
     # post-divide DFS leaf order -> shadow-walk rank per document leaf
     doc_rank = np.asarray(
@@ -282,6 +443,7 @@ def compile_scene(scene: SceneDesc, dtype=torch.float32,
         a_mat = np.asarray(tables.a_mat, dtype=np.int64)[order]
         a_rank = doc_rank[np.asarray(tables.a_doc, dtype=np.int64)][order]
     else:
+        order = np.zeros(0, np.int64)
         a_type = np.zeros(0, np.int64)
         inv = np.zeros((0, 4, 4))
         params = np.zeros((0, 4))
@@ -294,8 +456,13 @@ def compile_scene(scene: SceneDesc, dtype=torch.float32,
         if len(idx):
             type_ranges.append((t, int(idx[0]), int(len(idx))))
 
+    # csg tags stay Python ints (arbitrary-precision masks; no node cap)
+    a_csg = [tables.a_csg[int(i)] for i in order]
     tri = _triangle_block(tables, doc_rank)
     nt = len(tri["p1"])
+    if csg_progs:
+        csg_progs = _resolve_csg_tags(csg_progs, order, len(tables.t_rows),
+                                      tables.t_blocks)
 
     # ---- materials ----
     if not tables.m_rows:
@@ -389,10 +556,10 @@ def compile_scene(scene: SceneDesc, dtype=torch.float32,
         max_perlin_octaves=int(max((r["params"][3] for r in tables.p_rows
                                     if r["type"] == IR.PAT_PERTURBED),
                                    default=0)),
-        csg_trees=(), has_csg=False,
-        csg_prim_leaf=(-1,) * (n_analytic + nt),
-        csg_prim_anc=(0,) * (n_analytic + nt),
-        csg_prim_side=(0,) * (n_analytic + nt),
+        csg_trees=tuple(csg_progs), has_csg=bool(tables.csg_trees),
+        csg_prim_leaf=tuple(c[0] for c in a_csg) + tri["csg"],
+        csg_prim_anc=tuple(c[1] for c in a_csg) + tri["anc"],
+        csg_prim_side=tuple(c[2] for c in a_csg) + tri["side"],
     )
 
     f = lambda x: torch.as_tensor(np.asarray(x, dtype=np.float64))
@@ -455,8 +622,26 @@ def _triangle_block(tables: _Tables, doc_rank: np.ndarray) -> dict:
                          + [b["doc"] for b in tables.t_blocks])
     nt = len(out["p1"])
     out["rank"] = doc_rank[doc] if nt else np.zeros(0, np.int64)
+    # per-triangle csg tags as Python ints (a block shares one tag set)
+    tags = {k: [r[i] for r in tables.t_rows]
+            for k, i in (("csg", 11), ("side", 12), ("anc", 13))}
+    for b in tables.t_blocks:
+        for k in tags:
+            tags[k].extend([b[k]] * len(b["p1"]))
 
-    out["use_clusters"] = nt >= CLUSTER_MIN_TRIANGLES
+    # csg triangle leaves need dense candidate slots (the csg filter and
+    # the containers walk run over the dense table), so meshes inside csg
+    # trees stay unclustered whatever their size
+    out["use_clusters"] = (nt >= CLUSTER_MIN_TRIANGLES
+                           and all(c < 0 for c in tags["csg"]))
+    if nt >= 8192 and not out["use_clusters"]:
+        print(f"warning: {nt} triangles stay UNCLUSTERED because an OBJ "
+              "mesh is a CSG child; dense candidate tables scale "
+              "O(rays*triangles)", flush=True)
+    pad = (-nt) % CLUSTER_SIZE if out["use_clusters"] else 0
+    out["csg"] = tuple(tags["csg"]) + (-1,) * pad
+    out["side"] = tuple(tags["side"]) + (0,) * pad
+    out["anc"] = tuple(tags["anc"]) + (0,) * pad
     if not out["use_clusters"]:
         out["n_clusters"] = 0
         out["cluster_min"] = np.zeros((1, 3))
@@ -465,7 +650,6 @@ def _triangle_block(tables: _Tables, doc_rank: np.ndarray) -> dict:
     order = _morton_order(out["p1"] + (out["e1"] + out["e2"]) / 3.0)
     for k in cols + ("use_tex", "mat", "rank"):
         out[k] = out[k][order]
-    pad = (-nt) % CLUSTER_SIZE
     if pad:
         fill = {"p1": np.inf, "rank": 1 << 30}
         for k in cols + ("use_tex", "mat", "rank"):
@@ -482,6 +666,31 @@ def _triangle_block(tables: _Tables, doc_rank: np.ndarray) -> dict:
         out["cluster_max"] = np.where(finite, vc, -np.inf).max(axis=1)
     out["n_clusters"] = nc
     return out
+
+
+def _resolve_csg_tags(csg_progs, order: np.ndarray, n_rows: int,
+                      t_blocks: List[dict]):
+    """The programs' leaf tags as final global prim ids: analytic rows went
+    through the type sort; triangle rows follow the analytic block
+    (per-row triangles first, then each OBJ block)."""
+    inv_order = np.empty(len(order), np.int64)
+    inv_order[order] = np.arange(len(order))
+    block_base = [n_rows]
+    for b in t_blocks:
+        block_base.append(block_base[-1] + len(b["p1"]))
+    na = len(order)
+
+    def resolve(tag):
+        if tag[0] == "a":
+            return int(inv_order[tag[1]])
+        if tag[0] == "t":
+            return na + tag[1]
+        return na + block_base[tag[1]] + tag[2]      # ("b", block, i)
+
+    return [tuple(e if e[0] == "c" else
+                  ("g", tuple(tuple(resolve(t) for t in br) for br in e[1]))
+                  for e in prog)
+            for prog in csg_progs]
 
 
 def _morton_order(centroid: np.ndarray) -> np.ndarray:

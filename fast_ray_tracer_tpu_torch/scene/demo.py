@@ -9,6 +9,10 @@ refraction containers) and is the flagship benchmark workload.
 `mesh_torus` is the mesh workload: a bumped torus of smooth triangles,
 written as an OBJ file by `write_torus_obj` and loaded through the OBJ
 path, over a reflective checkered floor.
+
+`primitives_showcase` is the scene-language workload: every analytic
+shape, every procedural pattern and uv map, Perlin noise, a bump map and
+a CSG difference, each pattern bound to a real material map slot.
 """
 
 from __future__ import annotations
@@ -174,3 +178,131 @@ def mesh_torus(width: int = 600, height: int = 240, glass: bool = False,
         world=world,
         config=ConfigDesc(divide_threshold=1),
         root_dir=str(SCENE_DIR))
+
+
+def primitives_showcase(width: int = 800, height: int = 400) -> SceneDesc:
+    """Every analytic shape (plane, sphere, cube, closed glass cylinder,
+    closed cone, toroid), every procedural pattern (checker, gradient,
+    radial gradient, ring, stripe; blended, nested, perturbed with 4
+    octaves of Perlin noise) and uv map (planar, spherical, cubic,
+    cylindrical, toroidal with the uv checker, align-check, gradient and
+    radial gradient), a map_bump slot, and a CSG difference of a cube and a
+    sphere, lit by one point light; Whitted depth 5, a point aperture, one
+    sample per pixel. Deterministic: it draws no random numbers."""
+    P = PatternDesc
+
+    def align(main):
+        return P(kind="uv_align_check",
+                 colors=[main, (1.0, 0.1, 0.1), (1.0, 1.0, 0.2),
+                         (0.2, 0.9, 0.2), (0.1, 0.4, 1.0)])
+
+    floor = MaterialDesc(
+        specular=0.0, reflective=0.15, patterns={"map_Kd": P(
+            kind="map", mapping="plane", transform=[["scale", 3, 3, 3]],
+            faces=[P(kind="uv_gradient",
+                     colors=[(0.25, 0.3, 0.35), (0.75, 0.7, 0.6)])])})
+    # nested(checker, stripe, ring): the checker's two colors come from
+    # the stripe and the ring
+    wall = MaterialDesc(
+        ambient=0.2, diffuse=0.7, specular=0.0, patterns={"map_Kd": P(
+            kind="nested", children=[
+                P(kind="checker", colors=[(0, 0, 0), (1, 1, 1)]),
+                P(kind="stripe", colors=[(0.8, 0.8, 0.75), (0.45, 0.5, 0.6)],
+                  transform=[["scale", 0.5, 0.5, 0.5], ["rotate-y", 0.6]]),
+                P(kind="ring", colors=[(0.9, 0.9, 0.3), (0.2, 0.6, 0.3)],
+                  transform=[["scale", 0.7, 0.7, 0.7]])])})
+    globe = MaterialDesc(
+        diffuse=0.7, specular=0.6, shininess=80.0, reflective=0.5,
+        patterns={"map_Kd": P(
+            kind="map", mapping="sphere",
+            faces=[P(kind="uv_checker", width=16, height=8,
+                     colors=[(0.1, 0.25, 0.6), (0.9, 0.9, 0.9)])])})
+    box = MaterialDesc(
+        specular=0.3, patterns={"map_Kd": P(
+            kind="map", mapping="cube", faces=[
+                align(c) for c in ((1, 1, 1), (0.8, 0.8, 0.8), (1, 0.9, 0.7),
+                                   (0.7, 0.9, 1), (0.9, 0.7, 0.9),
+                                   (0.7, 1, 0.8))])})
+    glass = MaterialDesc(
+        color=(0.1, 0.1, 0.15), ambient=0.0, diffuse=0.2, specular=0.9,
+        shininess=300.0, reflective=0.9, transparency=0.9,
+        refractive_index=1.5, patterns={"map_Kd": P(
+            kind="map", mapping="cylinder", faces=[
+                P(kind="uv_checker", width=8, height=2,
+                  colors=[(0.1, 0.1, 0.2), (0.2, 0.2, 0.3)]),
+                align((0.2, 0.2, 0.2)),
+                P(kind="uv_gradient", colors=[(0.1, 0.1, 0.1),
+                                              (0.3, 0.3, 0.3)])])})
+    cone = MaterialDesc(
+        specular=0.5, shininess=50.0, patterns={"map_Kd": P(
+            kind="ring", colors=[(0.9, 0.5, 0.1), (0.3, 0.1, 0.05)],
+            transform=[["scale", 0.15, 0.15, 0.15]])})
+    torus = MaterialDesc(
+        specular=0.7, shininess=120.0, reflective=0.2, patterns={
+            "map_Kd": P(kind="map", mapping="toroid", faces=[P(
+                kind="uv_radial_gradient",
+                colors=[(0.9, 0.2, 0.5), (0.2, 0.8, 0.9)])])})
+    bumpy = MaterialDesc(
+        specular=0.6, shininess=60.0, patterns={
+            "map_Kd": P(kind="gradient", colors=[(0.2, 0.6, 0.2),
+                                                 (0.9, 0.9, 0.2)],
+                        transform=[["scale", 2, 2, 2], ["rotate-z", 0.7]]),
+            "map_bump": P(kind="perturbed", frequency=2.0, scale_factor=0.3,
+                          persistence=0.7, octaves=4, seed=7, children=[
+                              P(kind="stripe", colors=[(0.4, 0.4, 0.4),
+                                                       (0.6, 0.6, 0.6)],
+                                transform=[["scale", 0.1, 0.1, 0.1]])])})
+    # blended(radial gradient, checker)
+    radial = MaterialDesc(
+        specular=0.2, patterns={"map_Kd": P(kind="blended", children=[
+            P(kind="radial_gradient", colors=[(0.9, 0.9, 0.9),
+                                              (0.5, 0.1, 0.1)],
+              transform=[["scale", 0.3, 0.3, 0.3]]),
+            P(kind="checker", colors=[(0.2, 0.2, 0.2), (0.8, 0.8, 0.8)],
+              transform=[["scale", 0.25, 0.25, 0.25]])])})
+    world = [
+        ShapeDesc(kind="plane", material=floor),
+        ShapeDesc(kind="plane", material=wall,
+                  transform=[["rotate-x", 1.5708], ["translate", 0, 0, 8]]),
+        ShapeDesc(kind="sphere", material=globe,
+                  transform=[["translate", -3.3, 1.0, 0.6]]),
+        ShapeDesc(kind="cube", material=box,
+                  transform=[["scale", 0.7, 0.7, 0.7], ["rotate-y", 0.6],
+                             ["translate", -1.2, 0.7, 2.2]]),
+        ShapeDesc(kind="cylinder", material=glass, minimum=0.0, maximum=1.6,
+                  closed=True, transform=[["scale", 0.6, 1.0, 0.6],
+                                          ["translate", 0.5, 0.0, -1.2]]),
+        ShapeDesc(kind="cone", material=cone, minimum=-1.0, maximum=0.0,
+                  closed=True, transform=[["scale", 0.7, 1.5, 0.7],
+                                          ["translate", 2.4, 1.5, 1.6]]),
+        ShapeDesc(kind="toroid", material=torus, r1=0.75, r2=0.25,
+                  transform=[["rotate-x", -0.9],
+                             ["translate", 3.7, 0.95, -0.4]]),
+        # gradient and radial gradient on children of a group
+        ShapeDesc(kind="group", transform=[["translate", -1.8, 0.0, -1.9]],
+                  children=[
+                      ShapeDesc(kind="sphere", material=bumpy,
+                                transform=[["scale", 0.55, 0.55, 0.55],
+                                           ["translate", 0.0, 0.55, 0.0]]),
+                      ShapeDesc(kind="cube", material=radial,
+                                transform=[["scale", 0.3, 0.3, 0.3],
+                                           ["translate", 0.9, 0.3, -0.5]])]),
+        ShapeDesc(kind="csg", op="difference",
+                  transform=[["rotate-y", 0.5], ["translate", 1.9, 0.6, -2.6]],
+                  left=ShapeDesc(kind="cube", transform=[
+                      ["scale", 0.6, 0.6, 0.6]], material=MaterialDesc(
+                          color=(0.9, 0.3, 0.2), specular=0.4,
+                          shininess=30.0)),
+                  right=ShapeDesc(kind="sphere", transform=[
+                      ["scale", 0.8, 0.8, 0.8]], material=MaterialDesc(
+                          color=(0.9, 0.9, 0.3), specular=0.4,
+                          shininess=30.0))),
+    ]
+    return SceneDesc(
+        camera=CameraDesc(width=width, height=height, field_of_view=1.1,
+                          frm=(0.0, 2.6, -8.0), to=(0.2, 0.9, 0.0),
+                          up=(0.0, 1.0, 0.0), aperture=ApertureDesc()),
+        lights=[LightDesc(kind="point", at=(-6.0, 9.0, -8.0),
+                          intensity=(1.0, 1.0, 1.0))],
+        world=world,
+        config=ConfigDesc(divide_threshold=1))

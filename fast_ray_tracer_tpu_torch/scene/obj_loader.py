@@ -19,8 +19,7 @@ Semantics mirror the reference loader (src/libs/obj_loader/obj_loader.c):
 
 The port's copy of the JAX package's scene/obj_loader.py, numpy only. The
 scan takes the C++ core (native/obj_core.cpp); `_scan_obj_python` is the
-reference it is held to. Meshes inside CSG trees are not ported (CSG
-raises in compile_scene), and a texture map named in an MTL file raises
+reference it is held to. A texture map named in an MTL file raises
 NotImplementedError when its material is compiled.
 """
 
@@ -218,13 +217,20 @@ def _scan_obj_python(path: str) -> _Geometry:
     return g
 
 
-def load_obj_into(shape, m_world: np.ndarray, tables, nodes: List,
-                  m_flat: List[float]) -> None:
+def load_obj_into(shape, m_world: np.ndarray, tables, csg_id: int,
+                  csg_side: int, nodes: List, m_flat: List[float],
+                  csg_anc: int = 0, csg_doc: Optional[int] = None,
+                  inherited_mat: Optional[int] = None) -> None:
     """Parse shape.file and append a triangle block + divide-sim nodes.
 
     Geometry scanning runs in the C++ core (native/obj_core.cpp — the
     analog of the reference's native obj_loader.c); assembly is vectorized
-    numpy."""
+    numpy.
+
+    csg_doc set = this mesh is a CSG child (src/shapes/csg.c accepts any
+    shape): every triangle shares the tree's shadow-walk document leaf,
+    carries the (tree, ancestor mask, side mask) tags, and the leafblock
+    nodes get per-leaf tags so the filter program can name them."""
     path = _resolve(shape.file, tables.root_dir)
     if path is None:
         raise FileNotFoundError(f"obj not found: {shape.file}")
@@ -267,7 +273,7 @@ def load_obj_into(shape, m_world: np.ndarray, tables, nodes: List,
         states.append(cur_mat)
 
     yaml_mat_id = (tables.add_material(shape.material)
-                   if shape.material is not None else None)
+                   if shape.material is not None else inherited_mat)
     # raw-C default material (material.c:6-31): Ka=Kd=Ks=white, Ns=200
     default_mat_id: Optional[int] = None
     mtl_ids: Dict[int, int] = {}
@@ -348,13 +354,20 @@ def load_obj_into(shape, m_world: np.ndarray, tables, nodes: List,
         t1 = t2 = t3 = np.zeros((nt, 2))
 
     mat_ids = state_mat_ids[geo.event[order]]
-    doc_ids = tables.next_leaf + np.arange(nt, dtype=np.int64)
-    tables.next_leaf += nt
+    if csg_doc is None:
+        doc_ids = tables.next_leaf + np.arange(nt, dtype=np.int64)
+        tables.next_leaf += nt
+    else:
+        doc_ids = np.full(nt, csg_doc, np.int64)   # one doc per csg tree
+    block_index = len(tables.t_blocks)
 
     tables.t_blocks.append({
         "p1": p1, "e1": p2 - p1, "e2": p3 - p1,
         "n1": n1, "n2": n2, "n3": n3, "t1": t1, "t2": t2, "t3": t3,
-        "use_tex": use_t.copy(), "mat": mat_ids, "doc": doc_ids,
+        "use_tex": use_t.copy(), "mat": mat_ids,
+        # one (tree, side, anc) per block, as Python ints
+        "csg": int(csg_id), "side": int(csg_side), "anc": int(csg_anc),
+        "doc": doc_ids,
     })
 
     # object-space leaf boxes for the divide sim: per-axis min/max of the
@@ -370,6 +383,9 @@ def load_obj_into(shape, m_world: np.ndarray, tables, nodes: List,
             continue
         gnode = div.Node(kind="group", transform=list(div.IDENTITY))
         result_node.children.append(gnode)
+        tags = ([("b", block_index, int(i)) for i in sel]
+                if csg_doc is not None else None)
         gnode.children.append(div.Node(
             kind="leafblock", transform=list(div.IDENTITY),
-            block_boxes=boxes[sel], block_ids=doc_ids[sel]))
+            block_boxes=boxes[sel], block_ids=doc_ids[sel],
+            block_tags=tags))

@@ -58,32 +58,16 @@ from fast_ray_tracer_tpu_torch.scene import obj_loader as tobj
 from fast_ray_tracer_tpu_torch.scene.ir import SceneIR, SceneMeta
 from fast_ray_tracer_tpu_torch.scene.ir import scene_ir_from_numpy
 
+from scene_convert import convert, jax_tables
+
 torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 SEGMENTS = (48, 32)          # 3,072 triangles: the smallest meshes cluster
 
 
-def _to_jax(obj):
-    """A port scene description, field for field as the JAX package's."""
-    if dataclasses.is_dataclass(obj):
-        cls = getattr(jmodel, type(obj).__name__)
-        return cls(**{f.name: _to_jax(getattr(obj, f.name))
-                      for f in dataclasses.fields(obj)})
-    if isinstance(obj, list):
-        return [_to_jax(x) for x in obj]
-    if isinstance(obj, dict):
-        return {k: _to_jax(v) for k, v in obj.items()}
-    return obj
-
-
 def _t(x):
     return torch.from_numpy(np.array(x))      # a writable copy
-
-
-def _tables(ir):
-    return {f.name: np.asarray(getattr(ir, f.name))
-            for f in dataclasses.fields(JSceneIR) if f.name != "meta"}
 
 
 def _mesh_scene(obj_path):
@@ -125,7 +109,7 @@ def obj_path(tmp_path_factory):
 def mesh_pair(obj_path):
     """The mesh scene compiled by both packages in f64."""
     tsc = _mesh_scene(obj_path)
-    jir = jcomp.compile_scene(_to_jax(tsc), dtype=jnp.float64)
+    jir = jcomp.compile_scene(convert(tsc, jmodel), dtype=jnp.float64)
     tir = tcomp.compile_scene(tsc, dtype=torch.float64, device="cpu")
     return jir, tir
 
@@ -171,7 +155,7 @@ def test_compile_mesh_tables_match(mesh_pair):
     assert tir.meta.use_clusters and tir.meta.n_triangles == 3136
     assert tir.meta.n_clusters == 49            # odd: a padded supercluster
     assert dataclasses.asdict(tir.meta) == dataclasses.asdict(jir.meta)
-    ref = scene_ir_from_numpy(_tables(jir), tir.meta, "cpu", torch.float64)
+    ref = scene_ir_from_numpy(jax_tables(jir), tir.meta, "cpu", torch.float64)
     for field in SceneIR.table_names():
         a, b = getattr(tir, field), getattr(ref, field)
         assert a.dtype == b.dtype and torch.equal(a, b), field
@@ -481,7 +465,7 @@ def test_dense_triangle_candidates(tmp_path):
     triangle: candidates, closest hit, containers walk and shadow test."""
     path = tdemo.write_torus_obj(tmp_path / "small.obj", 16, 12)
     tsc = _mesh_scene(path)
-    jsc = _to_jax(tsc)
+    jsc = convert(tsc, jmodel)
     jir = jcomp.compile_scene(jsc, dtype=jnp.float64)
     tir = tcomp.compile_scene(tsc, dtype=torch.float64, device="cpu")
     assert not tir.meta.use_clusters and tir.meta.n_triangles == 386
@@ -656,7 +640,7 @@ def test_mesh_torus_render_matches_jax(glass, tmp_path, monkeypatch):
     1e-9 (glass runs the containers walk over the mesh)."""
     monkeypatch.setenv("FRT_COMPILE_CACHE", str(tmp_path))
     tsc = tdemo.mesh_torus(64, 32, glass=glass, segments=SEGMENTS)
-    want = jrender.render_scene(_to_jax(tsc), dtype=jnp.float64,
+    want = jrender.render_scene(convert(tsc, jmodel), dtype=jnp.float64,
                                 chunk_pixels=1024)
     stats = {}
     got = trender.render_scene(tsc, dtype=torch.float64, chunk_pixels=1024,

@@ -23,7 +23,6 @@ from fast_ray_tracer_tpu.sampling import cmj as jcmj
 from fast_ray_tracer_tpu.scene import compile as jcomp
 from fast_ray_tracer_tpu.scene import demo as jdemo
 from fast_ray_tracer_tpu.scene import model as jmodel
-from fast_ray_tracer_tpu.scene.ir import SceneIR as JSceneIR
 
 from fast_ray_tracer_tpu_torch.io import ppm as tppm
 from fast_ray_tracer_tpu_torch.ops import intersect as tint
@@ -36,6 +35,8 @@ from fast_ray_tracer_tpu_torch.scene import compile as tcomp
 from fast_ray_tracer_tpu_torch.scene import demo as tdemo
 from fast_ray_tracer_tpu_torch.scene import model as tmodel
 from fast_ray_tracer_tpu_torch.scene.ir import SceneIR, scene_ir_from_numpy
+
+from scene_convert import jax_tables
 
 torch.set_num_threads(1)
 
@@ -90,11 +91,6 @@ SCENES = {
 }
 
 
-def _jax_tables(ir):
-    return {f.name: np.asarray(getattr(ir, f.name))
-            for f in dataclasses.fields(JSceneIR) if f.name != "meta"}
-
-
 @pytest.fixture(scope="module", params=sorted(SCENES))
 def scene_pair(request):
     """A scene compiled by both packages in f64, with their statics."""
@@ -143,7 +139,7 @@ def test_compile_scene_tables_match(name):
     jir = jcomp.compile_scene(jsc, dtype=jnp.float64)
     tir = tcomp.compile_scene(tsc, dtype=torch.float64, device="cpu")
     assert dataclasses.asdict(tir.meta) == dataclasses.asdict(jir.meta)
-    ref = scene_ir_from_numpy(_jax_tables(jir), tir.meta, "cpu",
+    ref = scene_ir_from_numpy(jax_tables(jir), tir.meta, "cpu",
                               torch.float64)
     for field in SceneIR.table_names():
         a, b = getattr(tir, field), getattr(ref, field)
@@ -294,12 +290,13 @@ def test_construct_ppm():
             jppm.construct_ppm(canvas, scaling)
 
 
-@pytest.mark.parametrize("change", ["cube", "area_light", "jitter",
+@pytest.mark.parametrize("change", ["photon_gi", "area_light", "jitter",
                                     "texture", "xyz"])
 def test_unported_features_raise(change):
     sc = tdemo.glass_spheres(8, 4)
-    if change == "cube":
-        sc.world.append(tmodel.ShapeDesc(kind="cube"))
+    if change == "photon_gi":
+        sc.config.include_global = True
+        sc.config.photon_count = 1000
     elif change == "area_light":
         sc.lights = [tmodel.LightDesc(kind="area", usteps=2, vsteps=2)]
     elif change == "jitter":
