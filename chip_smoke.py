@@ -59,10 +59,37 @@ Phases, one line each or more:
      trace_bucketed on the card and on the CPU, within CARD_CPU_ATOL, with
      the share of pixels past 1e-9;
  14. showcase output: the sha256 of the showcase frame's PPM.
+ 15. soft frame: scene/demo.soft_textured(800, 400) in float32 through the
+     command line (`python -m fast_ray_tracer_tpu_torch` as main([yml, -o
+     build/out/soft_textured, ...]): YAML, PNG and PPM textures through
+     an MTL file and a planar map, a 4x4 area, a 2x2 circle and a
+     hemisphere light, a clustered 141,312-triangle torus, a glass
+     sphere), the whole frame in one chunk: the launches of every kernel,
+     no bucket overflow; the warm wall (median of --reps, load to files
+     written), pixels/s, traced rays/s (each lane casts a shadow ray to
+     every light sample), peak device memory; the PPM's sha256 equal to
+     the kernel frame's encode, the PNG read back with the port's
+     read_png bit for bit; the host time of each texture read (the
+     frame's two PNGs and its PPM, and a 1024x1024 RGB PNG whose rows are
+     filtered as libpng chooses, read back bit for bit); then a frame
+     whose one chunk reaches the renderer's shadow-ray cap, its peak
+     memory within PEAK_MEMORY_BUDGET;
+ 16. soft equality: the frame with the plain compaction, and an 800x16
+     strip with the plain mesh queries and through the unrolled trace,
+     bit for bit;
+ 17. soft shadow kernel: the area light's level-0 batch (R x 16 rays) of
+     one frame, the mesh shadow kernel's median time on all of it beside
+     its bounds, its output on the first 262,144 rays bitwise against the
+     plain version;
+ 18. soft card against CPU: soft_textured at 64x32 with a 2,048-triangle
+     torus in float64 through the unrolled trace: every pixel within
+     CARD_CPU_ATOL except those where a lookup took another texel (under
+     TEXEL_FLIP_SHARE of the frame), both counted.
 Then the compaction's device time per call from torch.profiler and one
-profiled warm showcase frame (its device events, device busy time, idle
-share against the warm wall, and top operators by device time), after
-every wall-clock phase (the profiler leaves launches slower); the card's
+profiled warm showcase and soft frame each (device events, device busy
+time, idle share against the warm wall, and top operators by device
+time), after every wall-clock phase (the profiler leaves launches
+slower); the card's
 nvidia-smi line, a JSON line of per-kernel results and, last, the device
 JSON line. Any failure raises and exits non-zero.
 --reps sets the number of warm frames of each render. With --profile, the
@@ -86,8 +113,11 @@ import numpy as np
 import torch
 
 from fast_ray_tracer_tpu_torch import _build
-from fast_ray_tracer_tpu_torch.io.ppm import construct_ppm
-from fast_ray_tracer_tpu_torch.ops import compact, mesh
+from fast_ray_tracer_tpu_torch.__main__ import main as cli_main
+from fast_ray_tracer_tpu_torch.io.ppm import (
+    construct_ppm, encode_png, png16, read_png, read_ppm,
+)
+from fast_ray_tracer_tpu_torch.ops import compact, mesh, patterns
 from fast_ray_tracer_tpu_torch.ops.intersect import neutralize_rays
 from fast_ray_tracer_tpu_torch.ops.vec import normalize
 from fast_ray_tracer_tpu_torch.render.camera import (
@@ -98,19 +128,21 @@ from fast_ray_tracer_tpu_torch.render.integrator import (
     spawn_counts, trace, trace_bucketed,
 )
 from fast_ray_tracer_tpu_torch.render.render import (
-    quantize_buckets, render_scene,
+    SHADOW_RAYS_PER_CHUNK, quantize_buckets, render_scene,
 )
 from fast_ray_tracer_tpu_torch.scene.compile import compile_scene
 from fast_ray_tracer_tpu_torch.scene.demo import (
-    glass_spheres, mesh_torus, primitives_showcase,
+    SOFT_DIR, glass_spheres, mesh_torus, primitives_showcase, soft_textured,
 )
-from fast_ray_tracer_tpu_torch.scene.ir import SceneIR, SceneMeta
+from fast_ray_tracer_tpu_torch.scene.ir import PAT_UV_TEXTURE, SceneIR, SceneMeta
 
 W, H = 800, 400
 RAYS_PER_PIXEL = 126      # 63 trace + 63 shadow rays (depth 5, 2 children)
 MW, MH = 600, 240         # the mesh frame
 SRC = "fast_ray_tracer_tpu_torch/csrc/compact.cu"
 MESH_SRC = "fast_ray_tracer_tpu_torch/csrc/mesh.cu"
+OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "out")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
 FP32_OPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
 # operations per (ray, triangle) Möller-Trumbore and per (ray,
@@ -565,19 +597,23 @@ def check_mesh_kernels(device):
     return out
 
 
-def frame_shadow_calls(device):
+def frame_shadow_calls(device, scene=None, keep=None):
     """(tables, origins, directions) of each mesh.shadow call of one warm
-    mesh_torus frame, copied as the call received them."""
+    frame of `scene` (mesh_torus), copied as the call received them; with
+    `keep`, only the calls whose index is in it."""
     calls = []
     real = mesh.shadow_cuda
+    count = [0]
 
     def record(m, orig, dirs):
-        calls.append((m, orig.clone(), dirs.clone()))
+        if keep is None or count[0] in keep:
+            calls.append((m, orig.clone(), dirs.clone()))
+        count[0] += 1
         return real(m, orig, dirs)
 
     mesh.shadow_cuda = record
     try:
-        frame(device, scene=mesh_torus(MW, MH))
+        frame(device, scene=mesh_torus(MW, MH) if scene is None else scene)
     finally:
         mesh.shadow_cuda = real
     return calls
@@ -611,14 +647,19 @@ def time_frame_shadow(calls):
     return tot
 
 
-def check_mesh_strip(device, glass):
-    """600x16 strip: the kernel frame against the plain-mesh frame, and
+def check_mesh_strip(device, glass=False, scene=None, label=None,
+                     phase="mesh-equal"):
+    """A 16-row strip through the middle of `scene` (mesh_torus, opaque or
+    glass): the kernel frame against the plain-mesh frame, and
     trace_bucketed against the unrolled trace, bit for bit."""
-    scene = mesh_torus(MW, MH, glass=glass)
+    if scene is None:
+        scene = mesh_torus(MW, MH, glass=glass)
+        label = f"{MW}x16 strip {'glass' if glass else 'opaque'}"
     ir = compile_scene(scene, dtype=torch.float32, device=device)
     rt = build_statics(ir, scene.config)
     depth = scene.config.di_path_length
-    o, d = pixel_rays(scene, device, rows=(MH // 2 - 8, MH // 2 + 8))
+    h = scene.camera.height
+    o, d = pixel_rays(scene, device, rows=(h // 2 - 8, h // 2 + 8))
     counts = torch.stack(spawn_counts(ir, rt, o, d, depth)).tolist()
     buckets = [max(64, -(-int(c * 1.25) // 64) * 64) for c in counts]
     got, ovf = trace_bucketed(ir, rt, o, d, depth, buckets)
@@ -627,7 +668,7 @@ def check_mesh_strip(device, glass):
     exact = trace(ir, rt, o, d, depth)
     same_p = all(torch.equal(x, y) for x, y in zip(got, plain))
     same_e = all(torch.equal(x, y) for x, y in zip(got, exact))
-    log("mesh-equal", f"{MW}x16 strip {'glass' if glass else 'opaque'}: "
+    log(phase, f"{label}: "
         f"kernel vs plain-mesh bitwise={same_p}, trace_bucketed vs trace "
         f"bitwise={same_e}, overflow={bool(ovf) or bool(ovf_p)} "
         f"buckets={buckets}")
@@ -766,13 +807,259 @@ def check_card_vs_cpu(device, w=64, h=32):
                              f"{CARD_CPU_ATOL}")
 
 
-def profile_showcase(device, wall):
-    """One profiled warm showcase frame: its device events (kernels, and
-    copies and memsets apart), device busy time, idle share against the
-    unprofiled warm wall, and the top operators by device time."""
+# ---------------------------------------------------------------------------
+# the scene-frontend slice
+# ---------------------------------------------------------------------------
+
+# card against CPU, float64, soft_textured 64x32: every pixel within
+# CARD_CPU_ATOL except pixels where a texture lookup took another texel on
+# the card than on the CPU (a uv an ulp across a texel edge moves the
+# whole texel); those are counted and must stay under this share of the
+# frame.
+TEXEL_FLIP_SHARE = 0.005
+# device memory a soft_textured frame in one chunk at the renderer's
+# SHADOW_RAYS_PER_CHUNK may peak at (it measured 7.767 GiB on an NVIDIA
+# H100 80GB HBM3, 700.00 W; PERF.md, section 5)
+PEAK_MEMORY_BUDGET = 16 << 30
+
+
+def time_texture_reads(reps=5):
+    """Host time (median of reps) of reading each of soft_textured's
+    textures, and a 1024x1024 8-bit RGB PNG of smooth seeded content whose
+    rows take the filter libpng would choose, which must read back bit
+    for bit. Returns {file: ms}."""
+    rng = np.random.default_rng(9)
+    y, x = np.mgrid[0:1024, 0:1024]
+    img = (128.0 + 60.0 * np.sin(x / 37.0 + y / 53.0)[..., None]
+           * np.array([1.0, 0.8, 0.6]) + 40.0 * np.cos(x / 91.0 - y / 29.0)
+           [..., None] + rng.normal(0.0, 3.0, (1024, 1024, 3)))
+    img = np.clip(np.round(img), 0, 255).astype(np.uint8)
+    big = os.path.join(OUT_DIR, "texture_1024.png")
+    with open(big, "wb") as f:
+        f.write(encode_png(img, adaptive=True))
+    files = [str(SOFT_DIR / n) for n in ("stone.png", "stone_bump.png",
+                                         "floor.ppm")] + [big]
+    ms = {}
+    for path in files:
+        reader = read_ppm if path.endswith(".ppm") else read_png
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            got = reader(path)
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[os.path.basename(path)] = statistics.median(times)
+    if not np.array_equal(np.round(got * 255.0), img):
+        raise AssertionError("the 1024x1024 PNG did not read back")
+    log("soft-textures", "host read times, median of "
+        f"{reps} (ms): {ms}; the 1024x1024 PNG read back bitwise")
+    return ms
+
+
+def soft_counts():
+    """The launch counters of every kernel of the path, zeroed."""
+    for counts in (compact.LAUNCHES, mesh.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def render_soft(device, reps):
+    """The frontend main path through the command line, counted: every
+    kernel must launch. Then the warm wall (median of reps), peak memory,
+    the PPM's hash against the kernel frame's encode, the PNG read back
+    bitwise, and the frame at the chunk cap against the memory budget."""
+    scene = soft_textured(W, H)
+    yml = str(SOFT_DIR / "soft_textured.yml")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    stem = os.path.join(OUT_DIR, "soft_textured")
+    argv = [yml, "-o", stem, "--chunk", str(W * H), "--quiet"]
+    soft_counts()
+    stats = {}
+    t0 = time.perf_counter()
+    cli_main(argv, stats=stats)
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    launches = {**compact.LAUNCHES, **mesh.LAUNCHES}
+    log("soft-frame", f"{W}x{H} depth 5 float32 through the command line: "
+        f"launches {launches}, buckets {stats['buckets']}, escalations "
+        f"{stats['escalations']}, exact chunks {stats['exact_chunks']}, "
+        f"first call {cold:.3f} s")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the frontend path never ran: "
+                             f"{launches}")
+    if stats["escalations"] or stats["exact_chunks"]:
+        raise AssertionError("bucket overflow after calibration")
+    walls = []
+    for _ in range(reps):
+        torch.cuda.reset_peak_memory_stats(device)
+        t0 = time.perf_counter()
+        cli_main(argv)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(device)
+    wall = statistics.median(walls)
+    ir = compile_scene(scene, dtype=torch.float32, device=device)
+    rt = build_statics(ir, scene.config)
+    o, d = pixel_rays(scene, device)
+    spawned = torch.stack(spawn_counts(ir, rt, o, d,
+                                       scene.config.di_path_length)).tolist()
+    # every lane casts one shadow ray to each sample of each light
+    samples = sum(info[4] for info in ir.meta.light_info)
+    traced = (W * H + sum(spawned)) * (1 + samples)
+    log("soft-frame", f"warm wall {wall:.4f} s (median of {walls}; load, "
+        f"compile, render, both files), {W * H / wall:.4g} pixels/s, "
+        f"{traced / wall:.4g} traced rays/s ({traced} rays: spawn counts "
+        f"{spawned}, {samples} shadow rays per lane); peak device memory "
+        f"{peak / 2**30:.3f} GiB")
+    canvas, _ = frame(device, scene=scene)
+    if canvas.shape != (H, W, 3) or not np.isfinite(canvas).all():
+        raise AssertionError("soft canvas not finite or of the wrong shape")
+    with open(stem + ".ppm", "rb") as f:
+        ppm = f.read()
+    png = np.round(read_png(stem + ".png") * 65535.0)
+    same_ppm = ppm == construct_ppm(canvas)
+    same_png = np.array_equal(png, png16(canvas))
+    log("soft-frame", f"{stem}.ppm sha256 {hashlib.sha256(ppm).hexdigest()}"
+        f"; equal to the kernel frame's encode: {same_ppm}; {stem}.png read "
+        f"back bitwise equal to the frame's 16-bit encode: {same_png}")
+    if not (same_ppm and same_png):
+        raise AssertionError("the command line's files differ from the "
+                             "frame")
+    time_texture_reads()
+    # the frame whose chunk reaches the cap: rays x light samples =
+    # SHADOW_RAYS_PER_CHUNK, against the peak-memory budget
+    cw = int(round((SHADOW_RAYS_PER_CHUNK // ir.meta.max_light_samples
+                    // 2) ** 0.5))
+    cap = soft_textured(2 * cw, cw)
+    torch.cuda.reset_peak_memory_stats(device)
+    frame(device, scene=cap)
+    cap_peak = torch.cuda.max_memory_allocated(device)
+    log("soft-frame", f"{2 * cw}x{cw} frame in one chunk "
+        f"({2 * cw * cw * ir.meta.max_light_samples} rays x light samples, "
+        f"the cap {SHADOW_RAYS_PER_CHUNK}): peak device memory "
+        f"{cap_peak / 2**30:.3f} GiB, budget "
+        f"{PEAK_MEMORY_BUDGET / 2**30:.0f} GiB")
+    if cap_peak > PEAK_MEMORY_BUDGET:
+        raise AssertionError("a chunk at the cap exceeds the memory budget")
+    return canvas, launches, wall, {"peak": peak, "cap_peak": cap_peak,
+                                    "traced": traced}
+
+
+def check_soft_equal(device, canvas):
+    """The kernel frame against the plain-compaction frame; a strip against
+    the plain mesh queries and the unrolled trace; all bit for bit."""
+    scene = soft_textured(W, H)
+    plain, _ = frame(device, compaction="plain", scene=scene)
+    same = np.array_equal(canvas, plain)
+    log("soft-equal", f"kernel frame vs plain-compaction frame "
+        f"bitwise={same}")
+    if not same:
+        raise AssertionError("soft kernel frame differs from the plain "
+                             "frame")
+    check_mesh_strip(device, scene=scene, label=f"{W}x16 strip",
+                     phase="soft-equal")
+
+
+def time_soft_shadow(device):
+    """The area light's level-0 shadow batch (R x S rays, each origin S
+    times in a row) from one warm frame: the kernel's time on all of it
+    (median of 20 events) beside the bounds, and its output on the first
+    262,144 rays bitwise against the plain version."""
+    calls = frame_shadow_calls(device, soft_textured(W, H), keep={0})
+    m, o, d = calls[0]
+    n = o.shape[0]
+    ms = median_ms(lambda: mesh.shadow_cuda(m, o, d), reps=20)
+    head = 262144
+    same, _ = _equal_outputs(mesh.shadow_cuda(m, o[:head], d[:head]),
+                             mesh.shadow_plain(m, o[:head], d[:head]))
+    plain_ms = median_ms(lambda: mesh.shadow_plain(m, o[:head], d[:head]),
+                         reps=3)
+    bound, by, ops, bound_pairs, passed = mesh_bound(m, o, d, 5)
+    log("soft-shadow-kernel", f"area light, level 0: {n} rays "
+        f"({n // (W * H)} per lane) x {m.tris.shape[1] * mesh.SC} triangles:"
+        f" kernel {ms:.3f} ms (median of 20), {ms * 1e6 / n:.3f} ns a ray; "
+        f"bound {bound:.4f} ms by {by} ({bound / ms:.2%} reached); passed "
+        f"pairs {passed}: bound {bound_pairs:.4f} ms "
+        f"({bound_pairs / ms:.2%} reached); first {head} rays against the "
+        f"plain version ({plain_ms:.3f} ms): equal={same}")
+    if not same:
+        raise AssertionError("mesh shadow != plain on the S-fold batch")
+    return {"soft_batch_rays": n, "soft_batch_ms": ms,
+            "soft_batch_bound_ms": bound,
+            "soft_batch_bound_pairs_ms": bound_pairs}
+
+
+@contextlib.contextmanager
+def texel_indices(out):
+    """Append each texture lookup's (atlas index, lanes that use it) to
+    `out` while the context is open."""
+    real = patterns.texel_index
+
+    def record(ir, pid, u, v):
+        idx = real(ir, pid, u, v)
+        used = ir.pat_type[pid.clamp(0, ir.meta.n_patterns - 1)] \
+            == PAT_UV_TEXTURE
+        out.append((idx.cpu(), used.cpu()))
+        return idx
+
+    patterns.texel_index = record
+    try:
+        yield
+    finally:
+        patterns.texel_index = real
+
+
+def check_soft_card_vs_cpu(device, w=64, h=32):
+    """soft_textured at w x h with a 2,048-triangle torus in float64
+    through the unrolled trace (lane i of every level belongs to pixel
+    i mod w*h) on the card and on the CPU (one torch thread): every pixel
+    within CARD_CPU_ATOL but those where some lookup took another texel,
+    which must stay under TEXEL_FLIP_SHARE."""
+    scene = soft_textured(w, h, segments=(32, 32))
+    depth = scene.config.di_path_length
+    n = w * h
+    canvases, lookups = [], []       # the card's, then the CPU's
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for dev in (device, torch.device("cpu")):
+            ir = compile_scene(scene, dtype=torch.float64, device=dev)
+            rt = build_statics(ir, scene.config)
+            o, d = pixel_rays(scene, dev, dtype=torch.float64)
+            lookups.append([])
+            with texel_indices(lookups[-1]):
+                tr = trace(ir, rt, o, d, depth)
+            canvases.append(((tr.a + tr.d + tr.s) / 3.0).cpu().numpy())
+    finally:
+        torch.set_num_threads(threads)
+    if len(lookups[0]) != len(lookups[1]) or not lookups[0]:
+        raise AssertionError("the card and the CPU made other lookups")
+    flipped = np.zeros(n, bool)
+    for (ia, ua), (ib, ub) in zip(*lookups):
+        lane = ((ia != ib) & (ua | ub)).numpy()
+        flipped[np.nonzero(lane)[0] % n] = True
+    diff = np.abs(canvases[0] - canvases[1]).max(-1)
+    rest = diff[~flipped]
+    log("soft-card-vs-cpu", f"soft_textured {w}x{h} float64: "
+        f"{len(lookups[0])} texture lookups; pixels with a texel "
+        f"flipped {int(flipped.sum())} ({flipped.mean():.4%}, limit "
+        f"{TEXEL_FLIP_SHARE:.1%}), their largest difference "
+        f"{diff[flipped].max() if flipped.any() else 0.0:.3e}; the other "
+        f"pixels: max |card - cpu| {rest.max():.3e}, past 1e-12 "
+        f"{(rest > 1e-12).mean():.4%}, bitwise equal {(rest == 0).mean():.4%};"
+        f" tolerance {CARD_CPU_ATOL}")
+    if flipped.mean() >= TEXEL_FLIP_SHARE or not rest.max() <= CARD_CPU_ATOL:
+        raise AssertionError("card and CPU soft canvases differ past the "
+                             "texel-flip rule")
+
+
+def profile_showcase(device, wall, scene=None, phase="showcase-profile"):
+    """One profiled warm frame of `scene` (primitives_showcase): its device
+    events (kernels, and copies and memsets apart), device busy time, idle
+    share against the unprofiled warm wall, and the top operators by
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    scene = primitives_showcase(W, H)
+    scene = primitives_showcase(W, H) if scene is None else scene
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, t = frame(device, scene=scene)
@@ -789,11 +1076,11 @@ def profile_showcase(device, wall):
                  key=self_dev, reverse=True)[:8]
     top = ", ".join(f"{e.key} {self_dev(e) / 1e3:.2f} ms ({e.count} calls)"
                     for e in ops)
-    log("showcase-profile", f"one warm frame: {kernels} kernel launches and "
+    log(phase, f"one warm frame: {kernels} kernel launches and "
         f"{copies} copies/memsets; profiled wall {t:.4f} s, device busy "
         f"{busy:.4f} s; unprofiled warm wall {wall:.4f} s -> device idle "
         f"share {1 - busy / wall:.3f}; top operators by device time: {top}")
-    return kernels
+    return {"launches": kernels, "busy_s": busy, "idle_share": 1 - busy / wall}
 
 
 def profile_to(path, device, b0, card, wall, mesh_wall):
@@ -974,9 +1261,18 @@ def main():
         f.write(ppm)
     log("showcase-output", f"{path} sha256 {hashlib.sha256(ppm).hexdigest()}")
 
+    # 15-18. the frontend path through the command line, counted; its
+    # equality checks, the shadow kernel on the S-fold batch, and the card
+    # against the CPU under the texel-flip rule
+    softcanvas, softlaunches, soft_wall, soft = render_soft(device, args.reps)
+    check_soft_equal(device, softcanvas)
+    mstats["shadow"].update(time_soft_shadow(device))
+    check_soft_card_vs_cpu(device)
+
     kstats["compact"]["device_ms"] = compact_device_ms(
         device, W * H, b0, kstats["compact"]["ms"])
     profile_showcase(device, show_wall)
+    profile_showcase(device, soft_wall, soft_textured(W, H), "soft-profile")
     if args.profile:
         profile_to(args.profile, device, b0, f"{kind}; {smi}", wall,
                    mesh_wall)
@@ -991,7 +1287,8 @@ def main():
              launches["expand"])):
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": count,
-                     "launches_showcase": slaunches[key], **kstats[key]})
+                     "launches_showcase": slaunches[key],
+                     "launches_soft": softlaunches[key], **kstats[key]})
     for name, key, replaces in (
             ("mesh_closest", "closest",
              "fast_ray_tracer_tpu/ops/mesh_pallas.py:262"),
@@ -999,7 +1296,9 @@ def main():
              "fast_ray_tracer_tpu/ops/mesh_pallas.py:287")):
         rows.append({"name": name, "route": "cuda", "source": MESH_SRC,
                      "replaces": replaces,
-                     "launches": mlaunches[f"mesh_{key}"], **mstats[key]})
+                     "launches": mlaunches[f"mesh_{key}"],
+                     "launches_soft": softlaunches[f"mesh_{key}"],
+                     **mstats[key]})
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,8 @@
 Two kinds of library, both loaded with ctypes through a plain C interface:
 - the CUDA kernels, one library per `csrc/<name>.cu`, compiled with nvcc
   for sm_90a into build/kernels/;
-- the host C++ walks of `native/` (OBJ scan, BVH-divide simulation),
-  compiled with g++ into build/native/.
+- the host C++ walks of `native/` (OBJ scan, BVH-divide simulation, PNG
+  scanline reconstruction), compiled with g++ into build/native/.
 
 A library's file name carries a hash of its sources and flags, so an edit
 rebuilds it and an unchanged tree reuses it. Builds write to a temporary
@@ -53,7 +53,8 @@ def _spec(name: str):
     """(library path, command without -o) of library `name`."""
     if name == "native":
         srcs = [PACKAGE / "native" / "obj_core.cpp",
-                PACKAGE / "native" / "divide_core.cpp"]
+                PACKAGE / "native" / "divide_core.cpp",
+                PACKAGE / "native" / "png_core.cpp"]
         cmd, flags, out = ["g++"], GXX_FLAGS, BUILD / "native"
     elif name in CUDA_SOURCES:
         srcs = [PACKAGE / "csrc" / f"{name}.cu"]

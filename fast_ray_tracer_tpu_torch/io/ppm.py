@@ -1,25 +1,45 @@
-"""Canvas output: 16-bit binary PPM (P6).
+"""Canvas output and texture input: 16-bit PPM (P6), 48-bit PNG, and the
+readers of both.
 
-Host-side numpy, as in the JAX package, reproducing the reference encoder
-bit for bit (src/libs/canvas/canvas.c:150-301): two analysis passes compute
-per-channel `rgb_max` over the raw canvas and `srgb_max` over
-srgb(canvas/rgb_max); the encode pass then either L1-clamps each pixel to
-sqrt(3) (use_scaling) or clamps channels to [0,1], sRGB-encodes, and
-quantizes with floor(srgb * 65535/srgb_max), saturating to 65535 above
-srgb_max. PNG output and texture reading come with later slices.
+Host-side numpy with `zlib` and `struct`, as in the JAX package,
+reproducing the reference's canvas code bit for bit
+(src/libs/canvas/canvas.c):
+
+* construct_ppm (canvas.c:150-301): two analysis passes compute
+  per-channel `rgb_max` over the raw canvas and `srgb_max` over
+  srgb(canvas/rgb_max); the encode pass then either L1-clamps each pixel
+  to sqrt(3) (use_scaling) or clamps channels to [0,1], sRGB-encodes, and
+  quantizes with floor(srgb * 65535/srgb_max), saturating to 65535 above
+  srgb_max.
+* write_png (canvas.c:374-529): clamp to [0,1], sRGB-encode,
+  floor(srgb * 65535), big-endian 16-bit RGB.
+* read_png / read_ppm mirror the loaders (canvas.c:329-366, 531-672):
+  values normalized to [0,1]; `decode` pre-applies the canvas's color
+  decode (texture canvases are read without super-sampling).
+
+read_png decodes non-interlaced PNGs of 8 or 16 bits per sample in grey,
+grey+alpha, RGB and RGBA with all five scanline filters, without Pillow:
+alpha is dropped and grey repeats to RGB. The scanlines are reconstructed
+by the native core (native/png_core.cpp), since the Average and Paeth
+filters are sequential along a row. Palette and interlaced PNGs raise
+ValueError (the JAX package converts them through Pillow).
 """
 
 from __future__ import annotations
 
+import struct
+import zlib
+
 import numpy as np
 
+from fast_ray_tracer_tpu_torch import native
+from fast_ray_tracer_tpu_torch.colors import rgb_to_srgb
 from fast_ray_tracer_tpu_torch.constants import SQRT3
 
-
-def _rgb_to_srgb(rgb: np.ndarray) -> np.ndarray:
-    with np.errstate(invalid="ignore"):
-        return np.where(rgb < 0.0031308, rgb * 12.92,
-                        1.055 * np.power(np.maximum(rgb, 0.0), 1.0 / 2.4) - 0.055)
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# samples per pixel of each PNG colour type this reader decodes
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+_PPM_WHITESPACE = b" \t\n\v\f\r"
 
 
 def construct_ppm(canvas: np.ndarray, use_scaling: bool = True) -> bytes:
@@ -31,7 +51,7 @@ def construct_ppm(canvas: np.ndarray, use_scaling: bool = True) -> bytes:
     rgb_max = c.reshape(-1, 3).max(axis=0)
     with np.errstate(invalid="ignore", divide="ignore"):
         normalized = c / rgb_max
-    srgb_max = np.nanmax(_rgb_to_srgb(normalized).reshape(-1, 3), axis=0)
+    srgb_max = np.nanmax(rgb_to_srgb(normalized).reshape(-1, 3), axis=0)
     inverse = 65535.0 / srgb_max
 
     px = c.copy()
@@ -41,7 +61,7 @@ def construct_ppm(canvas: np.ndarray, use_scaling: bool = True) -> bytes:
         px = px * scale
     else:
         px = np.clip(px, 0.0, 1.0)
-    srgb = _rgb_to_srgb(px)
+    srgb = rgb_to_srgb(px)
 
     scaled = np.floor(srgb * inverse)
     scaled = np.where(srgb > srgb_max, 65535.0, scaled)
@@ -54,3 +74,158 @@ def write_ppm(canvas, path: str, use_scaling: bool = True) -> None:
     """Write `<path>.ppm` like the reference's write_ppm_file (canvas.c:303)."""
     with open(str(path) + ".ppm", "wb") as f:
         f.write(construct_ppm(np.asarray(canvas), use_scaling))
+
+
+def png16(canvas) -> np.ndarray:
+    """The (H, W, 3) uint16 samples write_png stores for a float canvas."""
+    c = np.clip(np.asarray(canvas, dtype=np.float64), 0.0, 1.0)
+    return np.minimum(np.floor(rgb_to_srgb(c) * 65535.0),
+                      65535.0).astype(np.uint16)
+
+
+def write_png(canvas, path: str) -> None:
+    """Write `<path>.png` as 48-bit RGB, matching write_png (canvas.c:374)."""
+    with open(str(path) + ".png", "wb") as f:
+        f.write(encode_png(png16(canvas)))
+
+
+def _filter_adaptive(raw: np.ndarray, bpp: int) -> np.ndarray:
+    """(h, 1 + stride) filtered scanlines of the (h, stride) bytes `raw`,
+    each row under the filter whose bytes, read as signed, have the least
+    absolute sum (libpng's heuristic; PNG spec section 12.8)."""
+    x = raw.astype(np.int32)
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, bpp:] = x[:-1, :-bpp]
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    cand = np.stack([x, x - a, x - b, x - ((a + b) >> 1), x - paeth]) & 0xFF
+    best = np.minimum(cand, 256 - cand).sum(-1).argmin(0)
+    rows = cand[best, np.arange(x.shape[0])]
+    return np.concatenate([best[:, None], rows], 1).astype(np.uint8)
+
+
+def encode_png(samples: np.ndarray, adaptive: bool = False) -> bytes:
+    """PNG bytes of (H, W) grey or (H, W, C) samples, C in {1, 2, 3, 4}
+    (grey, grey+alpha, RGB, RGBA), uint8 or uint16, marked sRGB, zlib
+    level 6. Every scanline takes filter 0 (write_png's bytes are the JAX
+    package's), or with `adaptive` a filter chosen per row as libpng
+    chooses it."""
+    a = np.asarray(samples)
+    if a.ndim == 2:
+        a = a[..., None]
+    h, w, c = a.shape
+    depth = {np.dtype(np.uint8): 8, np.dtype(np.uint16): 16}[a.dtype]
+    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[c]
+    raw = np.frombuffer(a.astype(">u2" if depth == 16 else np.uint8)
+                        .tobytes(), np.uint8).reshape(h, w * c * depth // 8)
+    if adaptive:
+        lines = _filter_adaptive(raw, c * depth // 8)
+    else:
+        lines = np.concatenate([np.zeros((h, 1), np.uint8), raw], 1)
+    scanlines = lines.tobytes()
+
+    def chunk(tag: bytes, payload: bytes) -> bytes:
+        return (struct.pack(">I", len(payload)) + tag + payload
+                + struct.pack(">I", zlib.crc32(tag + payload) & 0xFFFFFFFF))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0)
+    return (PNG_SIGNATURE + chunk(b"IHDR", ihdr) + chunk(b"sRGB", b"\x03")
+            + chunk(b"IDAT", zlib.compress(scanlines, 6))
+            + chunk(b"IEND", b""))
+
+
+def read_png(path: str, decode=None) -> np.ndarray:
+    """Load a PNG to an (H, W, 3) float64 canvas in [0, 1]; `decode`
+    pre-applies the canvas's color decode."""
+    path = str(path)
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != PNG_SIGNATURE:
+        raise ValueError(f"not a PNG file: {path}")
+    pos, idat, hdr = 8, [], None
+    while pos + 8 <= len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag = data[pos + 4:pos + 8]
+        payload = data[pos + 8:pos + 8 + length]
+        if tag == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", payload)
+        elif tag == b"IDAT":
+            idat.append(payload)
+        elif tag == b"IEND":
+            break
+        pos += 12 + length
+    if hdr is None:
+        raise ValueError(f"PNG without an IHDR chunk: {path}")
+    w, h, depth, ctype, _, _, interlace = hdr
+    if ctype == 3:
+        raise ValueError(f"palette PNGs are not read (convert to RGB): "
+                         f"{path}")
+    if interlace != 0:
+        raise ValueError(f"interlaced PNGs are not read: {path}")
+    if ctype not in _PNG_CHANNELS or depth not in (8, 16):
+        raise ValueError(f"unsupported PNG (colour type {ctype}, "
+                         f"{depth} bits): {path}")
+    ch = _PNG_CHANNELS[ctype]
+    nbytes = depth // 8
+    bpp = ch * nbytes
+    raw = zlib.decompress(b"".join(idat))
+    if len(raw) < h * (w * bpp + 1):
+        raise ValueError(f"truncated PNG image data in {path}")
+    try:
+        rows = native.png_unfilter(raw, h, w * bpp, bpp)
+    except ValueError as e:
+        raise ValueError(f"{e} in {path}") from None
+    if depth == 16:
+        vals = rows.reshape(h, w, ch, 2).astype(np.uint16)
+        c = (vals[..., 0] * 256 + vals[..., 1]).astype(np.float64) / 65535.0
+    else:
+        c = rows.reshape(h, w, ch).astype(np.float64) / 255.0
+    c = np.repeat(c[..., :1], 3, -1) if ch <= 2 else c[..., :3]
+    return decode(c) if decode is not None else c
+
+
+def _ppm_header(data: bytes, path: str):
+    """The four whitespace-separated header fields of a PPM (magic, width,
+    height, maxval) and the offset of its pixel data, which starts after
+    exactly one whitespace byte past maxval (netpbm's PPM format)."""
+    fields, pos = [], 0
+    for _ in range(4):
+        while pos < len(data) and data[pos] in _PPM_WHITESPACE:
+            pos += 1
+        start = pos
+        while pos < len(data) and data[pos] not in _PPM_WHITESPACE:
+            pos += 1
+        if pos == start:
+            raise ValueError(f"truncated PPM header in {path}")
+        fields.append(data[start:pos])
+    return fields, pos + 1
+
+
+def read_ppm(path: str, decode=None) -> np.ndarray:
+    """Read the reference's ASCII-numbered 'P6' PPM variant
+    (construct_canvas_from_ppm_file, canvas.c:329-366: fscanf %u over
+    whitespace-separated values), and standard binary P6 (8 or 16 bits).
+    Binary samples start one whitespace byte past maxval, so a first
+    sample that is a whitespace byte is kept (the JAX reader drops it)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    (magic, w, h, maxval), start = _ppm_header(data, str(path))
+    w, h, maxval = int(w), int(h), int(maxval)
+    rest = data[start:]
+    if magic not in (b"P6", b"P3"):
+        raise ValueError(f"unsupported PPM magic {magic!r} in {path}")
+    tokens = rest.split()
+    if magic == b"P3" or (len(tokens) >= w * h * 3
+                          and all(t.isdigit() for t in tokens[:12])):
+        vals = np.array(tokens[: w * h * 3], dtype=np.float64)
+    elif maxval > 255:
+        vals = np.frombuffer(rest[: w * h * 6], dtype=">u2").astype(np.float64)
+    else:
+        vals = np.frombuffer(rest[: w * h * 3], dtype=np.uint8).astype(np.float64)
+    c = (vals / float(maxval)).reshape(h, w, 3)
+    return decode(c) if decode is not None else c

@@ -2,7 +2,9 @@
 
 The port's copy of the JAX package's `native/`: the OBJ line scan
 (`obj_core.cpp`) and the BVH-divide simulation that yields the shadow-walk
-ranks (`divide_core.cpp`). A 141k-triangle mesh makes the Python divide
+ranks (`divide_core.cpp`); and the PNG reader's scanline reconstruction
+(`png_core.cpp`), whose Average and Paeth filters are sequential along a
+row. A 141k-triangle mesh makes the Python divide
 walk take many seconds, and it runs inside every `compile_scene`, so the
 compiler always takes the C++ walks. `_build.py` builds them with g++ into
 build/native/ at first use; a failed build raises.
@@ -35,6 +37,10 @@ def _load():
         lib.frt_obj_fill.restype = None
         lib.frt_obj_free.argtypes = [ctypes.c_void_p]
         lib.frt_shadow_ranks.restype = ctypes.c_int64
+        lib.frt_png_unfilter.restype = ctypes.c_int64
+        lib.frt_png_unfilter.argtypes = [
+            ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_void_p]
         _lib = lib
     return _lib
 
@@ -201,3 +207,18 @@ def shadow_ranks(root, threshold: int, n_leaves: int):
     if rc != 0:
         raise AssertionError("leaf ids inconsistent (native divide)")
     return [int(x) for x in out]
+
+
+def png_unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """The (h, stride) bytes of a non-interlaced PNG image from its `h`
+    filtered scanlines of 1 + stride bytes each (`raw` holds at least
+    that much). Raises ValueError naming the first scanline whose filter
+    type is unknown."""
+    lib = _load()
+    out = np.empty((h, stride), np.uint8)
+    rc = lib.frt_png_unfilter(raw, h, stride, bpp, out.ctypes.data)
+    if rc != 0:
+        y = rc - 1
+        raise ValueError(f"unknown PNG filter type {raw[y * (stride + 1)]} "
+                         f"on scanline {y}")
+    return out

@@ -17,7 +17,8 @@ Semantics follow src/pattern/pattern.c:
   * uv-map patterns pick a face, then evaluate the face's uv pattern
     (:197-217); all uv_map projections (:309-488), with the C fmod
     (truncation remainder) and the `equal()` epsilon cube-face choice.
-Texture patterns (`uv_image`) are not ported: compile_scene raises.
+Texture patterns (`uv_image`) take the nearest texel of their image in
+the scene's flat texture atlas (pattern.c:285-297).
 """
 
 from __future__ import annotations
@@ -215,6 +216,20 @@ def _uv_map(map_kind, ctx: ShapeCtx, p, kinds):
 # uv patterns
 # ---------------------------------------------------------------------------
 
+def texel_index(ir: SceneIR, pid, u, v):
+    """The atlas row of texture pattern pid's texel at (u, v)
+    (pattern.c:285-297): v flips and the nearest texel rounds half up;
+    the flat index is clamped into the atlas."""
+    tex_id = ir.pat_tex[pid].clamp(0, ir.tex_offset.shape[0] - 1)
+    tw = ir.tex_width[tex_id]
+    th = ir.tex_height[tex_id]
+    col = to_int32_saturated(torch.floor(u * (tw - 1).to(u.dtype) + 0.5))
+    row = to_int32_saturated(
+        torch.floor((1.0 - v) * (th - 1).to(u.dtype) + 0.5))
+    idx = ir.tex_offset[tex_id] + row * tw + col
+    return idx.clamp(0, ir.tex_data.shape[0] - 1)
+
+
 def _eval_uv(ir: SceneIR, pid, u, v, kinds):
     """A uv pattern row at (u, v); pid: (R,) (clamped here)."""
     pid = pid.clamp(0, max(ir.meta.n_patterns - 1, 0))
@@ -241,6 +256,10 @@ def _eval_uv(ir: SceneIR, pid, u, v, kinds):
         outs.append(torch.where((v > 0.8)[..., None], top,
                                 torch.where((v < 0.2)[..., None], bottom,
                                             main)))
+
+    if IR.PAT_UV_TEXTURE in kinds:
+        conds.append((ptype == IR.PAT_UV_TEXTURE)[..., None])
+        outs.append(ir.tex_data[texel_index(ir, pid, u, v)])
 
     if IR.PAT_UV_GRADIENT in kinds:
         conds.append((ptype == IR.PAT_UV_GRADIENT)[..., None])
@@ -275,8 +294,6 @@ def eval_pattern(ir: SceneIR, pid, ctx: ShapeCtx, world_pt, ov_a=None,
     if meta.n_patterns == 0:
         return torch.zeros_like(world_pt)
     kinds = set(meta.pattern_kinds)
-    if IR.PAT_UV_TEXTURE in kinds:
-        raise NotImplementedError("texture patterns are not ported yet")
     if depth is None:
         depth = meta.pattern_depth
     valid = pid >= 0

@@ -269,11 +269,13 @@ def is_shadowed(ir: SceneIR, rt: RenderStatics, light_pts, p, active):
 
 
 def _light_sample_points(ir: SceneIR, li: int, R: int):
-    """Surface sample points for light li: (R, S, 3). Point lights have
-    one, the compile-time position."""
-    typ, _, _, jitter, num = ir.meta.light_info[li]
-    if typ != IR.LIGHT_POINT or jitter:
-        raise NotImplementedError("only unjittered point lights are ported")
+    """Surface sample points of light li: (R, S, 3), the compile-time
+    cache broadcast to every lane (point and hemisphere lights have one,
+    their position; unjittered area and circle lights their S CMJ
+    points)."""
+    if ir.meta.light_info[li][3]:
+        raise NotImplementedError("jittered lights are not ported yet")
+    num = ir.meta.light_info[li][4]
     return ir.light_points[li, :num][None].expand(R, num, 3)
 
 
@@ -342,17 +344,26 @@ def lighting_microfacet(ir: SceneIR, rt: RenderStatics, comps: Comps,
     return res
 
 
+def intensity_at(ir: SceneIR, rt: RenderStatics, li: int, p, active):
+    """The unshadowed fraction of light li's samples seen from p (R, 3)
+    (light.c:229-251), and the sample points."""
+    pts = _light_sample_points(ir, li, p.shape[0])
+    shadowed = is_shadowed(ir, rt, pts, p, active)
+    return (1.0 - shadowed.to(p.dtype)).mean(-1), pts
+
+
 def shade_direct(ir: SceneIR, rt: RenderStatics, comps: Comps) -> Triple:
     """The non-recursive part of shade_hit (renderer.c:689-770): direct
-    lighting per light."""
+    lighting per light. Point and hemisphere lights cast one shadow ray
+    per lane; area and circle lights cast one to each of their S sample
+    points, an (R * S)-ray shadow query, and light the lane from every
+    sample point."""
     R = comps.p.shape[0]
     surface = Triple.zeros(R, comps.p.dtype, comps.p.device)
     if rt.cfg.include_direct:
         for li in range(ir.meta.n_lights):
-            pts = _light_sample_points(ir, li, R)
-            shadowed = is_shadowed(ir, rt, pts, comps.over_point,
-                                   comps.valid)
-            intensity = 1.0 - shadowed[:, 0].to(comps.p.dtype)
+            intensity, pts = intensity_at(ir, rt, li, comps.over_point,
+                                          comps.valid)
             surface = surface + lighting_microfacet(
                 ir, rt, comps, li, pts, intensity)
     return surface

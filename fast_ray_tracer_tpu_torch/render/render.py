@@ -1,11 +1,13 @@
 """Top-level render loop, one device.
 
 Every pixel's usteps x vsteps subpixel samples become rays in one flat
-batch, chunked to bound memory. Scenes with reflective or refractive
-materials trace through the static-bucket wavefront
-(integrator.trace_bucketed): one probe pass over up to five sampled chunks
-measures each level's spawn counts, and one shared bucket tuple serves the
-whole render. A chunk whose children still overflow a bucket escalates
+batch, chunked to bound memory: a chunk holds at most
+SHADOW_RAYS_PER_CHUNK rays times light samples, since an area or circle
+light of S samples makes each level's shadow query S times the level's
+rays. Scenes with reflective or refractive materials trace through the
+static-bucket wavefront (integrator.trace_bucketed): one probe pass over
+up to five sampled chunks measures each level's spawn counts, and one
+shared bucket tuple serves the whole render. A chunk whose children still overflow a bucket escalates
 the buckets once; if it still overflows, that chunk is re-rendered on the
 exact unrolled trace. Each chunk costs one host sync, where its overflow
 flag and its colors come back.
@@ -31,6 +33,13 @@ from fast_ray_tracer_tpu_torch.scene.ir import default_device
 from fast_ray_tracer_tpu_torch.scene.model import SceneDesc
 
 
+# the largest (chunk rays) x (light samples) product of a chunk: a
+# soft_textured frame of one chunk at this cap peaked at 7.767 GiB of device
+# memory on an NVIDIA H100 80GB HBM3 (700.00 W); chip_smoke.py holds that
+# peak under its budget (PERF.md, section 5)
+SHADOW_RAYS_PER_CHUNK = 1 << 25
+
+
 def quantize_buckets(counts, margin):
     """Per-level spawn counts -> bucket sizes with `margin` headroom, in
     multiples of 4096 lanes (at least 256)."""
@@ -47,7 +56,9 @@ def render_scene(scene: SceneDesc, dtype=torch.float32,
     asked for).
 
     Only deterministic scenes are ported: jittered cameras or lights,
-    shaped apertures and photon GI raise NotImplementedError.
+    shaped apertures and photon GI raise NotImplementedError. Chunks are
+    cut to SHADOW_RAYS_PER_CHUNK rays times the scene's most light
+    samples.
     `compaction="plain"` forces the plain torch compaction (for tests that
     hold the kernels against it). If `stats` is a dict, it receives the
     calibrated `buckets` and the counts of chunks that needed a bucket
@@ -69,6 +80,8 @@ def render_scene(scene: SceneDesc, dtype=torch.float32,
 
     W, H = cam.width, cam.height
     S = cam.usteps * cam.vsteps
+    chunk_pixels = min(chunk_pixels, max(
+        256, SHADOW_RAYS_PER_CHUNK // (S * ir.meta.max_light_samples)))
     path_length = cfg.di_path_length
     det_table = torch.as_tensor(cmj_points_static(cam.usteps, cam.vsteps)) \
         .to(device=device, dtype=dtype)

@@ -5,7 +5,10 @@ scenes the port renders: the six analytic shapes under any nesting of
 groups and CSG trees, triangles and smooth triangles, OBJ meshes
 (scene/obj_loader.py), large meshes Morton-ordered into 64-triangle
 clusters (never those inside a CSG tree), materials, procedural patterns
-and uv maps with their children, and point lights. Transform chains are
+and uv maps with their children, texture images (PPM and PNG, read once
+per path into a flat atlas), and point, area, circle and hemisphere
+lights, the deterministic sample points of area and circle lights
+computed on the host in float64. Transform chains are
 composed and inverted on the host, group hierarchies dissolve into
 per-leaf world->object inverses, triangles are pre-transformed to world
 space, and the post-divide shadow-walk rank of every leaf is recovered by
@@ -16,9 +19,9 @@ postorder filter program (`_csg_prog`). The tables are byte-identical to
 the JAX package's; only the final wrap differs:
 `SceneIR(...).to(device, dtype)`.
 
-Not ported yet (each raises NotImplementedError): texture patterns
-(also texture maps named in an MTL file), the XYZ and LAB input color
-spaces, and area, circle and hemisphere lights.
+Input colors decode through `colors.INPUT_DECODE` in float64. A texture
+in another format than PPM or PNG, with no PNG beside it, raises
+ValueError (the JAX package converts it through Pillow).
 """
 
 from __future__ import annotations
@@ -30,12 +33,15 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from fast_ray_tracer_tpu_torch.colors import INPUT_DECODE, identity
+from fast_ray_tracer_tpu_torch.io.ppm import read_png, read_ppm
+from fast_ray_tracer_tpu_torch.sampling.cmj import cmj_points_static
 from fast_ray_tracer_tpu_torch.scene import divide as div
 from fast_ray_tracer_tpu_torch.scene import ir as IR
 from fast_ray_tracer_tpu_torch.scene.ir import (
     SceneIR, SceneMeta, default_device,
 )
-from fast_ray_tracer_tpu_torch.scene.obj_loader import load_obj_into
+from fast_ray_tracer_tpu_torch.scene.obj_loader import _resolve, load_obj_into
 from fast_ray_tracer_tpu_torch.scene.model import (
     MaterialDesc, PatternDesc, SceneDesc, ShapeDesc,
 )
@@ -54,6 +60,11 @@ _PAT_KIND = {
     "uv_align_check": IR.PAT_UV_ALIGN_CHECK, "uv_image": IR.PAT_UV_TEXTURE,
     "uv_gradient": IR.PAT_UV_GRADIENT,
     "uv_radial_gradient": IR.PAT_UV_RADIAL_GRADIENT,
+}
+
+_LIGHT_KIND = {
+    "point": IR.LIGHT_POINT, "area": IR.LIGHT_AREA,
+    "circle": IR.LIGHT_CIRCLE, "hemisphere": IR.LIGHT_HEMISPHERE,
 }
 
 _MAP_KIND = {
@@ -123,6 +134,33 @@ class _Tables:
         self.csg_node_ops: List[Dict[int, int]] = []
         self.m_rows: List[dict] = []
         self.p_rows: List[dict] = []
+        self.tex_imgs: List[np.ndarray] = []
+        self.tex_by_file: Dict[str, int] = {}
+
+    def texture_id(self, file: str, decode_to_linear: bool) -> int:
+        """Load a texture once per path; as the reference dedups its
+        resources, the first use's decode choice sticks
+        (yaml_parser/pattern.py:262-282). Paths resolve against the scene
+        root; a file in another format reads the PNG beside it, as the
+        reference's converted copy (yaml_parser/pattern.py:255-261)."""
+        if file in self.tex_by_file:
+            return self.tex_by_file[file]
+        lookup = file
+        if not file.endswith((".png", ".ppm")):
+            lookup = file[:-3] + "png"
+        path = _resolve(lookup, self.root_dir)
+        if path is None and lookup != file \
+                and _resolve(file, self.root_dir) is not None:
+            raise ValueError(f"texture {file!r}: only PPM and PNG files are "
+                             "read; convert it to a PNG beside it")
+        if path is None:
+            raise FileNotFoundError(f"texture not found: {file}")
+        decode = self.decode if decode_to_linear else None
+        read = read_ppm if path.endswith(".ppm") else read_png
+        self.tex_imgs.append(np.asarray(read(path, decode=decode),
+                                        dtype=np.float64))
+        self.tex_by_file[file] = len(self.tex_imgs) - 1
+        return self.tex_by_file[file]
 
     def add_pattern(self, p: Optional[PatternDesc]) -> int:
         if p is None:
@@ -146,7 +184,7 @@ class _Tables:
                 row["params"][0] = p.width
                 row["params"][1] = p.height
         elif p.kind == "uv_image":
-            raise NotImplementedError("texture patterns are not ported yet")
+            row["tex"] = self.texture_id(p.file, p.decode_to_linear)
         elif p.kind in ("blended", "nested", "perturbed"):
             kids = [self.add_pattern(c) for c in p.children]
             row["children"][: len(kids)] = kids
@@ -498,20 +536,61 @@ def compile_scene(scene: SceneDesc, dtype=torch.float32,
         pat_map_kind = np.zeros(0, np.int64)
         pat_tex = np.zeros(0, np.int64)
 
-    # ---- lights (point lights only in this slice) ----
+    # ---- texture atlas: every image's texels, row-major, one flat table
+    if tables.tex_imgs:
+        tex_data = np.concatenate([i.reshape(-1, 3) for i in tables.tex_imgs])
+        sizes = np.asarray([i.shape[0] * i.shape[1] for i in tables.tex_imgs])
+        tex_offset = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+        tex_width = np.asarray([i.shape[1] for i in tables.tex_imgs])
+        tex_height = np.asarray([i.shape[0] for i in tables.tex_imgs])
+    else:
+        # no textures: the JAX package's one-texel placeholder atlas
+        tex_data = np.zeros((1, 3))
+        tex_offset, tex_width, tex_height = np.zeros(1), np.ones(1), np.ones(1)
+
+    # ---- lights ----
     L = len(scene.lights)
     light_info = []
     li_int = np.zeros((L, 3))
     li_pos = np.zeros((L, 3))
-    li_points = np.zeros((L, 1, 3))
+    li_uvec = np.zeros((L, 3))
+    li_vvec = np.zeros((L, 3))
+    li_normal = np.zeros((L, 3))
+    li_radius = np.zeros(L)
+    pts_list = []
     for i, ld in enumerate(scene.lights):
-        if ld.kind != "point":
-            raise NotImplementedError(f"{ld.kind} lights are not ported yet")
-        light_info.append((IR.LIGHT_POINT, ld.usteps, ld.vsteps,
-                           bool(ld.jitter), 1))
+        num = ld.usteps * ld.vsteps if ld.kind in ("area", "circle") else 1
+        light_info.append((_LIGHT_KIND[ld.kind], ld.usteps, ld.vsteps,
+                           bool(ld.jitter), num))
         li_int[i] = ld.intensity
-        li_pos[i] = ld.at
-        li_points[i, 0] = ld.at
+        if ld.kind in ("point", "hemisphere"):
+            li_pos[i] = ld.at
+            pts_list.append(np.asarray(ld.at, dtype=np.float64)[None])
+            if ld.kind == "hemisphere":
+                n = np.asarray(ld.to) - np.asarray(ld.at)
+                li_normal[i] = n / np.linalg.norm(n)
+        elif ld.kind == "area":
+            # the stored edges are the full edge / steps (light.c:303-309)
+            li_pos[i] = ld.corner
+            li_uvec[i] = np.asarray(ld.uvec) / ld.usteps
+            li_vvec[i] = np.asarray(ld.vvec) / ld.vsteps
+            pts_list.append(_area_light_points(
+                np.asarray(ld.corner), li_uvec[i], li_vvec[i],
+                ld.usteps, ld.vsteps))
+        elif ld.kind == "circle":
+            li_pos[i] = ld.at
+            n = np.asarray(ld.to) - np.asarray(ld.at)
+            li_normal[i] = n / np.linalg.norm(n)
+            li_radius[i] = ld.radius
+            pts_list.append(_circle_light_points(
+                np.asarray(ld.at), li_normal[i], ld.radius,
+                ld.usteps, ld.vsteps))
+    s_max = max([len(p) for p in pts_list], default=1)
+    li_points = np.zeros((L, s_max, 3))
+    li_mask = np.zeros((L, s_max), bool)
+    for i, p in enumerate(pts_list):
+        li_points[i, : len(p)] = p
+        li_mask[i, : len(p)] = True
 
     cfg = scene.config
     has_refl = bool(mat_reflective.any()) and cfg.include_specular
@@ -535,7 +614,7 @@ def compile_scene(scene: SceneDesc, dtype=torch.float32,
     meta = SceneMeta(
         n_analytic=n_analytic, n_triangles=nt, n_materials=M, n_patterns=P,
         n_lights=L, type_ranges=tuple(type_ranges),
-        light_info=tuple(light_info), max_light_samples=1,
+        light_info=tuple(light_info), max_light_samples=s_max,
         has_reflective=has_refl, has_refractive=has_refr,
         needs_hit_sort=needs_sort,
         use_clusters=tri["use_clusters"], n_clusters=tri["n_clusters"],
@@ -582,13 +661,12 @@ def compile_scene(scene: SceneDesc, dtype=torch.float32,
         pat_colors=f(pat_colors), pat_params=f(pat_params),
         pat_children=i64(pat_children), pat_map_kind=i64(pat_map_kind),
         pat_tex=i64(pat_tex),
-        # no textures: the JAX package's one-texel placeholder atlas
-        tex_data=f(np.zeros((1, 3))), tex_offset=i64(np.zeros(1)),
-        tex_width=i64(np.ones(1)), tex_height=i64(np.ones(1)),
+        tex_data=f(tex_data), tex_offset=i64(tex_offset),
+        tex_width=i64(tex_width), tex_height=i64(tex_height),
         light_intensity=f(li_int), light_pos=f(li_pos),
-        light_uvec=f(np.zeros((L, 3))), light_vvec=f(np.zeros((L, 3))),
-        light_normal=f(np.zeros((L, 3))), light_radius=f(np.zeros(L)),
-        light_points=f(li_points), light_mask=b(np.ones((L, 1), bool)),
+        light_uvec=f(li_uvec), light_vvec=f(li_vvec),
+        light_normal=f(li_normal), light_radius=f(li_radius),
+        light_points=f(li_points), light_mask=b(li_mask),
     ).to(device, dtype)
 
 
@@ -713,12 +791,42 @@ def _morton_order(centroid: np.ndarray) -> np.ndarray:
 
 
 def _np_decode(color_space: str):
-    """Input color decode on host numpy (matches colors.INPUT_DECODE)."""
-    if color_space == "SRGB":
-        return lambda c: np.where(
-            np.asarray(c) <= 0.04045, np.asarray(c) / 12.92,
-            np.power((np.asarray(c) + 0.055) / 1.055, 2.4))
-    if color_space in ("XYZ", "LAB"):
-        raise NotImplementedError(
-            f"the {color_space} color space is not ported yet")
-    return lambda c: np.asarray(c, dtype=np.float64)
+    """Input color decode on host numpy, float64 (colors.INPUT_DECODE)."""
+    return INPUT_DECODE.get(color_space, identity)
+
+
+def _area_light_points(corner, uvec, vvec, usteps, vsteps):
+    """Deterministic area-light samples (light.c:154-191, jitter off): the
+    CMJ point scaled by (usteps, vsteps), then corner + u*uvec + v*vvec."""
+    pts = cmj_points_static(usteps, vsteps)   # (S, 2), get_point order
+    u = pts[:, 0] * usteps
+    v = pts[:, 1] * vsteps
+    return corner[None] + u[:, None] * uvec[None] + v[:, None] * vvec[None]
+
+
+def _circle_light_points(origin, normal, radius, usteps, vsteps):
+    """Deterministic circle-light samples (light.c:100-135): the CMJ
+    point as a uniform disc sample in the plane normal to `normal`."""
+    pts = cmj_points_static(usteps, vsteps)
+    return origin[None] + _points_on_circle(pts, normal, radius)
+
+
+def _points_on_circle(pts, normal, radius):
+    """sampler_circle (sampler.c:8-20, 116-139): theta = 2 pi r1,
+    r = sqrt(r2) R, the point (r cos, 0, r sin) mapped as x nb + z nt."""
+    theta = 2.0 * math.pi * pts[:, 0]
+    r = radius * np.sqrt(pts[:, 1])
+    nt, nb = _coordinate_system(normal)
+    return (r * np.cos(theta))[:, None] * nb[None] \
+        + (r * np.sin(theta))[:, None] * nt[None]
+
+
+def _coordinate_system(n):
+    """create_coordinate_system (sampler.c:66-85): the C code multiplies by
+    the sqrt factor and then normalizes (the scale cancels), and negates
+    nt; nb = cross(n, nt)."""
+    if abs(n[0]) > abs(n[1]):
+        nt = -np.asarray([n[2], 0.0, -n[0]]) / math.sqrt(n[0] ** 2 + n[2] ** 2)
+    else:
+        nt = -np.asarray([0.0, -n[2], n[1]]) / math.sqrt(n[1] ** 2 + n[2] ** 2)
+    return nt, np.cross(n, nt)

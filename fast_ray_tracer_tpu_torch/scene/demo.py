@@ -13,19 +13,27 @@ path, over a reflective checkered floor.
 `primitives_showcase` is the scene-language workload: every analytic
 shape, every procedural pattern and uv map, Perlin noise, a bump map and
 a CSG difference, each pattern bound to a real material map slot.
+
+`soft_textured` is the frontend workload: a YAML scene with area, circle
+and hemisphere lights and image textures (PNG through an MTL file on the
+mesh, a 16-bit PPM on the floor), its assets written at first use.
 """
 
 from __future__ import annotations
 
+import json
 import os
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
+from fast_ray_tracer_tpu_torch.io.ppm import encode_png
 from fast_ray_tracer_tpu_torch.scene.model import (
     ApertureDesc, CameraDesc, ConfigDesc, LightDesc, MaterialDesc,
     PatternDesc, SceneDesc, ShapeDesc,
 )
+from fast_ray_tracer_tpu_torch.scene.yaml_loader import scene_from_tree
 
 
 def glass_spheres(width: int = 400, height: int = 200,
@@ -96,11 +104,25 @@ def glass_spheres(width: int = 400, height: int = 200,
 SCENE_DIR = Path(__file__).resolve().parents[2] / "build" / "scenes"
 
 
-def write_torus_obj(path, nu: int, nv: int) -> str:
+def _write_atomic(path, data) -> None:
+    """Write bytes or text through a temporary file, so that a concurrent
+    reader never sees a partial file."""
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb" if isinstance(data, bytes) else "w") as f:
+        f.write(data)
+    os.replace(tmp, path)
+
+
+def write_torus_obj(path, nu: int, nv: int, uv: bool = False,
+                    mtl: Optional[str] = None) -> str:
     """Write a bumped torus as an OBJ file of `v`, `vn` and `f v//vn` quads
     (nu around the ring x nv around the tube; each quad fan-triangulates
-    into two smooth triangles, 2*nu*nv in all). Deterministic: the same
-    arguments always give the same bytes. Returns the path."""
+    into two smooth triangles, 2*nu*nv in all). With `uv` the faces also
+    name texture coordinates, `f v/vt/vn`: u runs 0..4 around the ring, v
+    0..1 around the tube (the texture tiles 4 times, seams included). With
+    `mtl` the file loads that MTL file and uses the material named as its
+    stem. Deterministic: the same arguments always give the same bytes.
+    Returns the path."""
     path = str(path)
     u = 2.0 * np.pi * np.arange(nu) / nu
     v = 2.0 * np.pi * np.arange(nv) / nv
@@ -126,13 +148,24 @@ def write_torus_obj(path, nu: int, nv: int) -> str:
     quads = np.stack([vid(i, j), vid(i + 1, j), vid(i + 1, j + 1),
                       vid(i, j + 1)], -1).reshape(-1, 4)
     lines = [f"# bumped torus, {nu} x {nv} quads"]
+    if mtl:
+        lines += [f"mtllib {mtl}", f"usemtl {Path(mtl).stem}"]
     lines += ["v %.17g %.17g %.17g" % tuple(p) for p in pos.reshape(-1, 3)]
     lines += ["vn %.17g %.17g %.17g" % tuple(n) for n in nrm.reshape(-1, 3)]
-    lines += ["f " + " ".join(f"{k}//{k}" for k in q) for q in quads]
-    tmp = f"{path}.{os.getpid()}.tmp"
-    with open(tmp, "w") as f:
-        f.write("\n".join(lines) + "\n")
-    os.replace(tmp, path)
+    if uv:
+        # a vt grid of (nu + 1) x (nv + 1): the seam quads take u = 4 and
+        # v = 1 where their vertices wrap to index 0
+        tu, tv = np.meshgrid(4.0 * np.arange(nu + 1) / nu,
+                             np.arange(nv + 1) / nv, indexing="ij")
+        lines += ["vt %.17g %.17g" % t for t in zip(tu.ravel(), tv.ravel())]
+        tid = lambda a, b: a * (nv + 1) + b + 1
+        tq = np.stack([tid(i, j), tid(i + 1, j), tid(i + 1, j + 1),
+                       tid(i, j + 1)], -1).reshape(-1, 4)
+        lines += ["f " + " ".join(f"{k}/{t}/{k}" for k, t in zip(q, w))
+                  for q, w in zip(quads, tq)]
+    else:
+        lines += ["f " + " ".join(f"{k}//{k}" for k in q) for q in quads]
+    _write_atomic(path, "\n".join(lines) + "\n")
     return path
 
 
@@ -306,3 +339,128 @@ def primitives_showcase(width: int = 800, height: int = 400) -> SceneDesc:
                           intensity=(1.0, 1.0, 1.0))],
         world=world,
         config=ConfigDesc(divide_threshold=1))
+
+
+SOFT_DIR = SCENE_DIR / "soft_textured"
+SOFT_SEGMENTS = (384, 184)
+
+
+def _soft_images() -> dict:
+    """The soft_textured frame's texture images from fixed seeds, as file
+    name -> bytes: a 256x256 8-bit RGB stone PNG, its 8-bit grey bump PNG
+    (values about 0.5, so the normals tilt a little), and a 16-bit P6 PPM
+    of a veined floor."""
+    rng = np.random.default_rng(6)
+    y, x = np.mgrid[0:256, 0:256] / 256.0
+    # stone: three random plane waves per channel, a warm tint, grain
+    waves = sum(np.sin(2 * np.pi * (rng.integers(1, 6) * x
+                                    + rng.integers(1, 6) * y)
+                       + rng.uniform(0, 2 * np.pi, 3)[:, None, None])
+                for _ in range(3))
+    stone = (0.55 + 0.12 * waves.transpose(1, 2, 0)
+             * np.array([1.0, 0.85, 0.7])
+             + rng.normal(0.0, 0.04, (256, 256, 3)))
+    stone8 = np.clip(np.round(stone * 255), 0, 255).astype(np.uint8)
+    bump = 0.5 + 0.06 * np.sin(2 * np.pi * 8 * x) * np.sin(2 * np.pi * 6 * y) \
+        + rng.normal(0.0, 0.01, (256, 256))
+    bump8 = np.clip(np.round(bump * 255), 0, 255).astype(np.uint8)
+    # floor: veins of a warped sine over a cool grey
+    fy, fx = np.mgrid[0:192, 0:192] / 192.0
+    warp = fx + 0.15 * np.sin(2 * np.pi * 2 * fy) + rng.normal(0, 0.01,
+                                                               fx.shape)
+    vein = np.abs(np.sin(2 * np.pi * 1.5 * warp)) ** 6
+    floor = (0.62 - 0.4 * vein)[..., None] * np.array([0.95, 0.97, 1.0])
+    floor16 = np.clip(np.round(floor * 65535), 0, 65535).astype(">u2")
+    ppm = b"P6\n192 192\n65535\n" + floor16.tobytes()
+    # each PNG row filtered as libpng would choose (Average for most rows
+    # here), so that reading them takes the reader's sequential
+    # reconstruction, as users' files do
+    return {"stone.png": encode_png(stone8, adaptive=True),
+            "stone_bump.png": encode_png(bump8, adaptive=True),
+            "floor.ppm": ppm}
+
+
+SOFT_MTL = """# soft_textured's mesh material: a stone texture and its bump map
+newmtl stone
+Ns 60.0
+Ni 1.0
+d 1.0
+Ka 0.25 0.25 0.25
+Kd 0.9 0.9 0.9
+Ks 0.35 0.35 0.35
+map_Kd stone.png
+map_bump stone_bump.png
+"""
+
+
+def _soft_tree(width: int, height: int, obj: str) -> list:
+    """The soft_textured scene as a YAML document (entries of the
+    reference schema)."""
+    glass = {"color": [0.1, 0.12, 0.15], "ambient": 0.0, "diffuse": 0.2,
+             "specular": 0.9, "shininess": 300.0, "reflective": 0.9,
+             "transparency": 0.9, "refractive-index": 1.5}
+    return [
+        {"add": "config",
+         "illumination": {"include-direct": True,
+                          "direct-illumination": {"path-length": 5}},
+         "scene": {"divide-threshold": 1},
+         "output": {"color-space": "SRGB"}},
+        {"add": "camera", "width": width, "height": height,
+         "field-of-view": 0.95, "from": [0.0, 3.0, -7.2],
+         "to": [0.0, 0.9, 0.0], "up": [0.0, 1.0, 0.0],
+         "aperture": {"type": ["POINT_APERTURE"], "size": 0.0,
+                      "jitter": False}},
+        {"add": "light", "corner": [-3.5, 6.0, -4.5], "uvec": [2.0, 0.0, 0.0],
+         "vvec": [0.0, 0.0, 2.0], "usteps": 4, "vsteps": 4, "jitter": False,
+         "intensity": [0.75, 0.75, 0.7]},
+        {"add": "light", "at": [4.5, 4.0, -3.0], "to": [0.0, 0.5, 0.0],
+         "radius": 0.8, "usteps": 2, "vsteps": 2, "jitter": False,
+         "intensity": [0.35, 0.4, 0.5]},
+        {"add": "light", "at": [0.0, 9.0, 2.0], "to": [0.0, 0.0, 0.0],
+         "intensity": [0.2, 0.2, 0.2]},
+        {"add": "plane",
+         "material": {"specular": 0.0, "reflective": 0.25, "patterns": {
+             "Kd": {"type": "map", "mapping": "planar",
+                    "transform": [["scale", 4.0, 4.0, 4.0]],
+                    "uv_pattern": {"type": "image", "file": "floor.ppm"}}}}},
+        {"add": "obj", "file": obj,
+         "transform": [["rotate-x", 1.1], ["rotate-y", 0.4],
+                       ["translate", 0.5, 1.25, 0.3]]},
+        {"add": "sphere", "material": glass,
+         "transform": [["scale", 0.65, 0.65, 0.65],
+                       ["translate", -1.9, 0.65, -1.3]]},
+    ]
+
+
+def soft_textured(width: int = 800, height: int = 400,
+                  segments=SOFT_SEGMENTS) -> SceneDesc:
+    """The scene frontend's frame: the 2 * segments[0] * segments[1]
+    smooth-triangle bumped torus of mesh_torus (141,312 by default, so
+    clustered), stone-textured through an MTL file (map_Kd and map_bump,
+    PNGs) over its vt coordinates; a glass sphere (reflection and
+    refraction through the containers walk); a floor whose Kd is a planar
+    map of a 16-bit PPM; a 4x4 area light, a 2x2 circle light and a
+    hemisphere light, none jittered; sRGB input colors, Whitted depth 5, a
+    point aperture, one sample per pixel.
+
+    The images, the MTL file, the OBJ file and the scene as YAML
+    (`soft_textured.yml`, at 800x400 with the default torus; it equals
+    `soft_textured()` once loaded) are written to
+    build/scenes/soft_textured/ on first use, from fixed seeds. The scene
+    is built from the same YAML document, without PyYAML."""
+    nu, nv = segments
+    obj = f"torus_uv_{nu}x{nv}.obj"
+    SOFT_DIR.mkdir(parents=True, exist_ok=True)
+    if not (SOFT_DIR / "soft_textured.yml").exists():
+        for name, data in _soft_images().items():
+            _write_atomic(SOFT_DIR / name, data)
+        _write_atomic(SOFT_DIR / "stone.mtl", SOFT_MTL)
+        default = _soft_tree(800, 400, "torus_uv_%dx%d.obj" % SOFT_SEGMENTS)
+        _write_atomic(SOFT_DIR / "soft_textured.yml",
+                      "# scene/demo.soft_textured(800, 400), written by it\n"
+                      + json.dumps(default, indent=1) + "\n")
+    for n in ((nu, nv), SOFT_SEGMENTS):
+        path = SOFT_DIR / ("torus_uv_%dx%d.obj" % n)
+        if not path.exists():
+            write_torus_obj(path, *n, uv=True, mtl="stone.mtl")
+    return scene_from_tree(_soft_tree(width, height, obj), str(SOFT_DIR))

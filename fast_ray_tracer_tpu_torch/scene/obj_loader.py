@@ -19,8 +19,9 @@ Semantics mirror the reference loader (src/libs/obj_loader/obj_loader.c):
 
 The port's copy of the JAX package's scene/obj_loader.py, numpy only. The
 scan takes the C++ core (native/obj_core.cpp); `_scan_obj_python` is the
-reference it is held to. A texture map named in an MTL file raises
-NotImplementedError when its material is compiled.
+reference it is held to. An MTL file's map_Ka, map_Kd and map_bump bind
+`uv_image` patterns through the triangle uv map (sRGB-decoded but for
+map_bump).
 """
 
 from __future__ import annotations

@@ -2,14 +2,27 @@
 
 The two packages' scene/model.py files are field-for-field copies, so a
 scene description crosses over dataclass to dataclass by name, either way
-(`convert`). A compiled JAX SceneIR crosses over as numpy tables plus its
-SceneMeta, which the port's SceneMeta copies field for field
-(`ir_from_jax`)."""
+(`convert`): every light kind, every pattern (`uv_image` with its file and
+decode flag included) and the scene's `root_dir`, against which OBJ, MTL
+and texture paths resolve. A compiled JAX SceneIR crosses over as numpy
+tables plus its SceneMeta, which the port's SceneMeta copies field for
+field (`ir_from_jax`): the light tables (sample points, masks, edges,
+normals, radii) and the texture atlas included. `jax_canvas` renders a
+scene's frame through the JAX package's bucketed wavefront."""
 
 import dataclasses
 
 import numpy as np
 
+import jax
+import jax.numpy as jnp
+
+from fast_ray_tracer_tpu.ops import compact_pallas
+from fast_ray_tracer_tpu.render import camera as jcam
+from fast_ray_tracer_tpu.render import integrator as jintg
+from fast_ray_tracer_tpu.sampling.cmj import cmj_points_static
+from fast_ray_tracer_tpu.scene import compile as jcomp
+from fast_ray_tracer_tpu.scene import model as jmodel
 from fast_ray_tracer_tpu.scene.ir import SceneIR as JSceneIR
 from fast_ray_tracer_tpu_torch.scene.ir import SceneMeta, scene_ir_from_numpy
 
@@ -36,7 +49,37 @@ def jax_tables(jir):
 
 def ir_from_jax(jir, device, dtype):
     """The port's SceneIR holding the JAX SceneIR's tables and meta (csg
-    programs, pattern and map tables included)."""
+    programs, pattern, texture and light tables included)."""
     meta = SceneMeta(**{f.name: getattr(jir.meta, f.name)
                         for f in dataclasses.fields(SceneMeta)})
     return scene_ir_from_numpy(jax_tables(jir), meta, device, dtype)
+
+
+def jax_canvas(scene, buckets):
+    """The (H, W, 3) float64 canvas of a port scene description (one
+    sample per pixel, a point aperture) through the JAX package's
+    trace_bucketed in one jit, with `buckets` (the port's calibration:
+    the JAX side skips its own probe) and its XLA compaction; raises on a
+    bucket overflow."""
+    sc = convert(scene, jmodel)
+    cam = sc.camera
+    w, h = cam.width, cam.height
+    n = w * h
+    jir = jcomp.compile_scene(sc, dtype=jnp.float64)
+    jrt = jintg.build_statics(jir, sc.config)
+    crt = jcam.build_camera(cam, dtype=jnp.float64)
+    depth = sc.config.di_path_length
+
+    @jax.jit
+    def run(px, py):
+        uv = jnp.broadcast_to(jnp.asarray(cmj_points_static(1, 1)), (n, 2))
+        o, d = jcam.rays_for_pixels(crt, px, py, uv, jnp.zeros((n, 2)))
+        tr, ovf = jintg.trace_bucketed(jir, jrt, o, d, depth, None,
+                                       list(buckets))
+        return (tr.a + tr.d + tr.s) / 3.0, ovf
+
+    with compact_pallas.override_mode("off"):
+        img, ovf = run(jnp.asarray(np.tile(np.arange(w), h)),
+                       jnp.asarray(np.repeat(np.arange(h), w)))
+    assert not bool(ovf), "JAX trace_bucketed overflowed"
+    return np.asarray(img).reshape(h, w, 3)

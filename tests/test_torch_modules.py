@@ -290,22 +290,42 @@ def test_construct_ppm():
             jppm.construct_ppm(canvas, scaling)
 
 
-@pytest.mark.parametrize("change", ["photon_gi", "area_light", "jitter",
-                                    "texture", "xyz"])
+@pytest.mark.parametrize("change", ["photon_gi", "jitter", "area_jitter",
+                                    "aperture"])
 def test_unported_features_raise(change):
     sc = tdemo.glass_spheres(8, 4)
     if change == "photon_gi":
         sc.config.include_global = True
         sc.config.photon_count = 1000
-    elif change == "area_light":
-        sc.lights = [tmodel.LightDesc(kind="area", usteps=2, vsteps=2)]
     elif change == "jitter":
         sc.lights[0].jitter = True
-    elif change == "texture":
-        sc.world[0].material.patterns["map_Kd"] = tmodel.PatternDesc(
-            kind="uv_image", file="t.png")
+    elif change == "area_jitter":
+        sc.lights = [tmodel.LightDesc(kind="area", usteps=2, vsteps=2,
+                                      jitter=True)]
     else:
-        sc.config.color_space = "XYZ"
+        sc.camera.aperture = tmodel.ApertureDesc(kind="CIRCULAR_APERTURE",
+                                                 size=0.1)
     from fast_ray_tracer_tpu_torch.render.render import render_scene
     with pytest.raises(NotImplementedError):
         render_scene(sc, dtype=torch.float64, device="cpu")
+
+
+@pytest.mark.parametrize("change", ["area_light", "texture", "xyz"])
+def test_ported_features_render(change, tmp_path):
+    """What raised before the scene-frontend slice renders now: an
+    unjittered area light, a texture pattern, the XYZ color space."""
+    sc = tdemo.glass_spheres(8, 4)
+    if change == "area_light":
+        sc.lights = [tmodel.LightDesc(kind="area", usteps=2, vsteps=2,
+                                      corner=(-4.9, 4.9, -1.0))]
+    elif change == "texture":
+        (tmp_path / "t.ppm").write_bytes(b"P6\n2 1\n255\n" + bytes(range(6)))
+        sc.root_dir = str(tmp_path)
+        sc.world[1].material.patterns["map_Kd"] = tmodel.PatternDesc(
+            kind="map", mapping="plane", faces=[tmodel.PatternDesc(
+                kind="uv_image", file="t.ppm", decode_to_linear=True)])
+    else:
+        sc.config.color_space = "XYZ"
+    from fast_ray_tracer_tpu_torch.render.render import render_scene
+    img = render_scene(sc, dtype=torch.float64, device="cpu")
+    assert img.shape == (4, 8, 3) and np.isfinite(img).all()
