@@ -14,7 +14,8 @@ Phases, one line each or more:
      case, float64, a scan of more than 1024 tiles, a 5-row input, N an
      exact multiple of the compaction tile, N = 0, C = 32 in float64 and
      float32, two compactions back to back on one stream with different
-     act (the look-back scratch resets), and the VJPs of the autograd pair;
+     act (the look-back scratch resets), and the VJPs of the autograd
+     pair, also on an overflowed level;
      median event times of both, and of the nearest single PyTorch call
      (library_ms), which the port never calls;
   4. render: render_scene(glass_spheres(800, 400)) in float32 on the card,
@@ -85,7 +86,23 @@ Phases, one line each or more:
      torus in float64 through the unrolled trace: every pixel within
      CARD_CPU_ATOL except those where a lookup took another texel (under
      TEXEL_FLIP_SHARE of the frame), both counted.
-Then the compaction's device time per call from torch.profiler and one
+ 19. train: make_train_step on glass_spheres(800, 400) in float32, the
+     whole frame one batch, buckets from one spawn-count probe at 1.2x,
+     the target rendered with mat_Kd x 0.6, the backward over every float
+     table (Adam updating TRAIN_TABLES), with remat="level" and "none":
+     the compaction launches of one step's forward and of its backward
+     (each > 0), then --reps timed steps (median ms), peak device memory,
+     each step's loss (finite, falling), no overflow;
+ 20. train equality: on an 800x16 strip, the gradients with the CUDA
+     compaction against those with the plain one (bitwise with
+     deterministic algorithms, and within TRAIN_STRIP_RTOL without), and
+     the bucketed trace's against the unrolled trace's within
+     TRAIN_STRIP_RTOL but for the rows the value gates prune;
+ 21. train card against CPU: the gradients at 24x12 in float64, bucketed
+     with remat="level", within TRAIN_CARD_CPU_RTOL of each field's
+     largest |g|.
+Then the compaction's device time per call from torch.profiler, one
+profiled warm train step, and one
 profiled warm showcase and soft frame each (device events, device busy
 time, idle share against the warm wall, and top operators by device
 time), after every wall-clock phase (the profiler leaves launches
@@ -120,6 +137,9 @@ from fast_ray_tracer_tpu_torch.io.ppm import (
 from fast_ray_tracer_tpu_torch.ops import compact, mesh, patterns
 from fast_ray_tracer_tpu_torch.ops.intersect import neutralize_rays
 from fast_ray_tracer_tpu_torch.ops.vec import normalize
+from fast_ray_tracer_tpu_torch.parallel.train import (
+    adam, make_train_step, merge_params, split_params,
+)
 from fast_ray_tracer_tpu_torch.render.camera import (
     build_camera, rays_for_pixels,
 )
@@ -128,8 +148,9 @@ from fast_ray_tracer_tpu_torch.render.integrator import (
     spawn_counts, trace, trace_bucketed,
 )
 from fast_ray_tracer_tpu_torch.render.render import (
-    SHADOW_RAYS_PER_CHUNK, quantize_buckets, render_scene,
+    SHADOW_RAYS_PER_CHUNK, pixel_colors, quantize_buckets, render_scene,
 )
+from fast_ray_tracer_tpu_torch.sampling.cmj import cmj_points_static
 from fast_ray_tracer_tpu_torch.scene.compile import compile_scene
 from fast_ray_tracer_tpu_torch.scene.demo import (
     SOFT_DIR, glass_spheres, mesh_torus, primitives_showcase, soft_textured,
@@ -286,6 +307,23 @@ def check_kernels(device, n0, b0, seed=0):
     log("kernels", f"backward: N={n} B={b0} equal={ok}")
     if not ok:
         raise AssertionError("kernel VJPs != plain")
+    # the VJPs of a level that overflowed: the expand in compact's
+    # backward meets more live rows than the bucket holds and must clamp
+    # its reads to row B-1, as the plain version does
+    bo = n // 4
+    src = torch.randn((n, 6), generator=g, device=device, requires_grad=True)
+    child = torch.randn((bo, 9), generator=g, device=device,
+                        requires_grad=True)
+    ct_b = torch.randn((bo, 6), generator=g, device=device)
+    compact.compact_rows(src, act, bo, FILL_ROW).backward(ct_b)
+    compact.expand_rows(child, act).backward(ct_n)
+    ok = (torch.equal(src.grad, compact.expand_rows_plain(ct_b, act))
+          and torch.equal(child.grad, compact.compact_rows_plain(
+              ct_n, act, bo, (0.0,) * 9)))
+    log("kernels", f"backward overflow: N={n} B={bo} live={int(act.sum())} "
+        f"equal={ok}")
+    if not ok:
+        raise AssertionError("kernel VJPs != plain on an overflowed level")
 
     act = torch.rand(n, generator=g, device=device) < 0.5
     src = torch.randn((n, 6), generator=g, device=device)
@@ -808,6 +846,236 @@ def check_card_vs_cpu(device, w=64, h=32):
 
 
 # ---------------------------------------------------------------------------
+# the training slice
+# ---------------------------------------------------------------------------
+
+# The tables Adam updates in the 800x400 steps (at the default rate); the
+# backward covers every float table, the others take a rate of 0. The
+# reference's shading is discontinuous in some tables at their starting
+# values: an opaque material has mat_Tr = 0, and any Tr > 0 switches on
+# the dissolve multiply (combine_specular), scaling its surface by Tr. A
+# first Adam step moves every entry by about the rate whatever its
+# gradient, so with every table updated (at 1e-3) the loss went 0.00464
+# -> 0.0131 on the card in this phase's first version.
+TRAIN_TABLES = ("mat_Ka", "mat_Kd", "mat_Ks", "mat_refl", "mat_Tf",
+                "light_intensity")
+# float32 on the card, an 800x16 strip: each field's gradient sums up to
+# ~25,000 lane terms, in another order through the bucketed trace than
+# through the unrolled one (and through atomics in autograd's scatter-adds
+# of the table gathers): within this share of the field's largest |g|
+TRAIN_STRIP_RTOL = 1e-4
+# float64, 24x12, the card against the CPU: the bound of the CPU tests
+# against the JAX package (the card contracts multiply-adds)
+TRAIN_CARD_CPU_RTOL = 1e-9
+
+
+class TrainSet:
+    """glass_spheres' rows [y0, y1) as one batch for the train step, on
+    `device` in `dtype`: the scene split into parameters, buckets from one
+    spawn-count probe at 1.2x margin, and the target frame rendered with
+    mat_Kd scaled by 0.6."""
+
+    def __init__(self, device, dtype=torch.float32, w=W, h=H, rows=None):
+        scene = glass_spheres(w, h)
+        y0, y1 = rows or (0, h)
+        self.ir = compile_scene(scene, dtype=dtype, device=device)
+        self.rt = build_statics(self.ir, scene.config)
+        self.cam = build_camera(scene.camera, dtype=dtype, device=device)
+        self.depth = scene.config.di_path_length
+        py = torch.arange(y0, y1, device=device).repeat_interleave(w)
+        px = torch.arange(w, device=device).repeat(y1 - y0)
+        n = px.shape[0]
+        uv = torch.as_tensor(cmj_points_static(1, 1), dtype=dtype) \
+            .to(device).expand(n, 2)
+        self.args = (px, py, uv, torch.zeros((n, 2), dtype=dtype,
+                                             device=device))
+        counts = spawn_counts(self.ir, self.rt, *rays_for_pixels(
+            self.cam, *self.args), self.depth)
+        self.counts = torch.stack(counts).tolist()
+        self.buckets = quantize_buckets(self.counts, 1.2)
+        self.params, self.static = split_params(self.ir)
+        scaled = dict(self.params)
+        scaled["mat_Kd"] = self.params["mat_Kd"].detach() * 0.6
+        with torch.no_grad():
+            self.target, ovf = pixel_colors(
+                merge_params(scaled, self.static), self.rt, self.cam,
+                *self.args, 1, self.depth, buckets=self.buckets)
+        if bool(ovf):
+            raise AssertionError("the target frame overflowed its buckets")
+
+    def fresh(self):
+        return {k: v.detach().clone().requires_grad_(True)
+                for k, v in self.params.items()}
+
+    def grads(self, **kw):
+        """{key: gradient} of the MSE at the starting parameters."""
+        params = self.fresh()
+        img, ovf = pixel_colors(merge_params(params, self.static), self.rt,
+                                self.cam, *self.args, 1, self.depth, **kw)
+        if bool(ovf):
+            raise AssertionError("a gradient frame overflowed its buckets")
+        loss = torch.mean((img - self.target) ** 2)
+        keys = [k for k, v in params.items() if v.numel()]
+        gs = torch.autograd.grad(loss, [params[k] for k in keys],
+                                 allow_unused=True)
+        return {k: torch.zeros_like(params[k]) if g is None else g
+                for k, g in zip(keys, gs)}
+
+
+def train_steps(device, reps, remat, rows=None):
+    """One warm-up and `reps` timed Adam steps over every parameter, the
+    whole batch at once: per-step wall (forward, backward and update),
+    peak device memory, each step's loss (finite and falling), no
+    overflow, and the compaction launches of the warm-up step's forward
+    and backward apart (every count > 0 in the backward)."""
+    ts = TrainSet(device, rows=rows)
+    params = ts.fresh()
+    groups = [{"params": [params[k] for k in TRAIN_TABLES]},
+              {"params": [p for k, p in params.items()
+                          if k not in TRAIN_TABLES], "lr": 0.0}]
+    init, step = make_train_step(ts.rt, ts.cam, ts.static, 1, ts.depth,
+                                 remat=remat, buckets=ts.buckets,
+                                 optimizer=lambda ps: adam(groups))
+    state = init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    fwd = {}
+    compact.LAUNCHES.update(compact=0, expand=0)
+    mesh.LAUNCHES.update(mesh_closest=0, mesh_shadow=0)
+    state, loss, ovf = step(state, *ts.args, ts.target,
+                            between=lambda: fwd.update(compact.LAUNCHES))
+    torch.cuda.synchronize()
+    total = dict(compact.LAUNCHES)
+    bwd = {k: total[k] - fwd[k] for k in total}
+    if any(mesh.LAUNCHES.values()):
+        raise AssertionError(f"mesh kernels ran in training: {mesh.LAUNCHES}")
+    losses, ovfs, times = [loss], [ovf], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        state, loss, ovf = step(state, *ts.args, ts.target)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+        ovfs.append(ovf)
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    losses = [float(x) for x in losses]
+    ms = statistics.median(times) * 1e3
+    w, h = W, (rows[1] - rows[0]) if rows else H
+    log("train", f"{w}x{h} depth 5 float32 remat={remat!r}: buckets "
+        f"{ts.buckets} (spawn counts {ts.counts}); one step's forward "
+        f"launches {fwd}, backward {bwd}; step (forward, backward over "
+        f"{len(params)} tables, Adam on {len(TRAIN_TABLES)}) {ms:.1f} ms "
+        f"(median of "
+        f"{[round(t * 1e3, 1) for t in times]}); peak device memory "
+        f"{peak:.3f} GiB; losses {losses}; overflow "
+        f"{[bool(x) for x in ovfs]}")
+    if any(bool(x) for x in ovfs):
+        raise AssertionError("a train step overflowed its buckets")
+    if min(bwd.values()) < 1 or min(fwd.values()) < 1:
+        raise AssertionError(f"a compaction kernel did not run: forward "
+                             f"{fwd}, backward {bwd}")
+    if not all(np.isfinite(losses)) or not all(
+            b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"losses not finite and falling: {losses}")
+    return {"ms": ms, "peak_gib": peak, "fwd": fwd, "bwd": bwd,
+            "losses": losses}
+
+
+def profile_train_step(device, step_ms, remat="level"):
+    """One profiled warm train step at 800x400: device events, device busy
+    time, idle share against the unprofiled step's wall, and the top
+    operators by device time."""
+    from torch.profiler import ProfilerActivity, profile
+    ts = TrainSet(device)
+    init, step = make_train_step(ts.rt, ts.cam, ts.static, 1, ts.depth,
+                                 remat=remat, buckets=ts.buckets)
+    state = init(ts.fresh())
+    step(state, *ts.args, ts.target)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, *ts.args, ts.target)
+        torch.cuda.synchronize()
+        t = time.perf_counter() - t0
+    kernels, copies, busy, top = profile_summary(prof)
+    wall = step_ms / 1e3
+    log("train-profile", f"one warm step remat={remat!r}: {kernels} kernel "
+        f"launches and {copies} copies/memsets; profiled wall {t:.4f} s, "
+        f"device busy {busy:.4f} s; unprofiled step {wall:.4f} s -> device "
+        f"idle share {1 - busy / wall:.3f}; top operators by device time: "
+        f"{top}")
+
+
+def _grad_diff(got, want, rows_out=None):
+    """max |got - want| / max |want| over each field (rows_out: per key, a
+    row mask to leave out)."""
+    out = {}
+    for k, w in want.items():
+        g = got[k]
+        if rows_out and k in rows_out:
+            g, w = g[~rows_out[k]], w[~rows_out[k]]
+        scale = float(w.abs().max()) if w.numel() else 0.0
+        diff = float((g - w).abs().max()) if w.numel() else 0.0
+        out[k] = diff / scale if scale else diff
+    return out
+
+
+def check_train_strip(device):
+    """800x16 strip, float32: the gradients with the CUDA compaction
+    against those with the plain one (bitwise with deterministic
+    algorithms; within TRAIN_STRIP_RTOL with autograd's atomics), and the
+    bucketed against the unrolled trace's, but for the rows the value
+    gates prune (all-zero Tf: subgradient 0 bucketed)."""
+    ts = TrainSet(device, rows=(H // 2 - 8, H // 2 + 8))
+    kern = ts.grads(buckets=ts.buckets)
+    plain = ts.grads(buckets=ts.buckets, compaction="plain")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        kern_d = ts.grads(buckets=ts.buckets)
+        plain_d = ts.grads(buckets=ts.buckets, compaction="plain")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    unrolled = ts.grads()
+    same_d = all(torch.equal(kern_d[k], plain_d[k]) for k in kern_d)
+    same = all(torch.equal(kern[k], plain[k]) for k in kern)
+    d_plain = max(_grad_diff(kern, plain).values())
+    zero_tf = ~(ts.ir.mat_Tf != 0.0).any(-1)
+    zero_rf = ~(ts.ir.mat_refl != 0.0).any(-1)
+    d_unrolled = _grad_diff(kern, unrolled,
+                            {"mat_Tf": zero_tf, "mat_refl": zero_rf})
+    worst = max(d_unrolled, key=d_unrolled.get)
+    pruned_zero = bool((kern["mat_Tf"][zero_tf] == 0.0).all())
+    log("train-equal", f"{W}x16 strip float32, buckets {ts.buckets}: kernel "
+        f"vs plain-compaction gradients bitwise={same} (largest share of a "
+        f"field's max |g| {d_plain:.3e}), with deterministic algorithms "
+        f"bitwise={same_d}; bucketed vs unrolled largest share "
+        f"{d_unrolled[worst]:.3e} ({worst}), pruned mat_Tf rows zero="
+        f"{pruned_zero}")
+    if not same_d or d_plain > TRAIN_STRIP_RTOL:
+        raise AssertionError("kernel gradients differ from the plain ones")
+    if d_unrolled[worst] > TRAIN_STRIP_RTOL or not pruned_zero:
+        raise AssertionError("bucketed gradients differ from the unrolled")
+
+
+def check_train_card_vs_cpu(device, w=24, h=12):
+    """24x12 in float64, bucketed with remat="level": each field's
+    gradient on the card within TRAIN_CARD_CPU_RTOL of its largest |g| on
+    the CPU."""
+    card = TrainSet(device, torch.float64, w, h)
+    cpu = TrainSet(torch.device("cpu"), torch.float64, w, h)
+    got = card.grads(buckets=cpu.buckets, remat="level")
+    want = cpu.grads(buckets=cpu.buckets, remat="level")
+    diff = _grad_diff({k: v.cpu() for k, v in got.items()}, want)
+    worst = max(diff, key=diff.get)
+    log("train-card-cpu", f"{w}x{h} float64 gradients, {len(diff)} fields: "
+        f"largest share of a field's max |g| {diff[worst]:.3e} ({worst}); "
+        f"bound {TRAIN_CARD_CPU_RTOL}")
+    if diff[worst] > TRAIN_CARD_CPU_RTOL:
+        raise AssertionError("card gradients differ from the CPU's")
+
+
+# ---------------------------------------------------------------------------
 # the scene-frontend slice
 # ---------------------------------------------------------------------------
 
@@ -1052,23 +1320,14 @@ def check_soft_card_vs_cpu(device, w=64, h=32):
                              "texel-flip rule")
 
 
-def profile_showcase(device, wall, scene=None, phase="showcase-profile"):
-    """One profiled warm frame of `scene` (primitives_showcase): its device
-    events (kernels, and copies and memsets apart), device busy time, idle
-    share against the unprofiled warm wall, and the top operators by
-    device time."""
+def profile_summary(prof):
+    """(kernel launches, copies and memsets, device busy s, the top eight
+    aten operators by device time as text) of a torch.profiler run."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    scene = primitives_showcase(W, H) if scene is None else scene
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, t = frame(device, scene=scene)
     rows = prof.key_averages()
     dev = [e for e in rows if e.device_type == DeviceType.CUDA]
     copies = sum(e.count for e in dev if e.key.startswith(("Memcpy",
                                                              "Memset")))
-    kernels = sum(e.count for e in dev) - copies
-    busy = device_us(prof) / 1e6
     self_dev = lambda e: getattr(e, "self_device_time_total",
                                  getattr(e, "self_cuda_time_total", 0))
     ops = sorted((e for e in rows if e.device_type == DeviceType.CPU
@@ -1076,6 +1335,21 @@ def profile_showcase(device, wall, scene=None, phase="showcase-profile"):
                  key=self_dev, reverse=True)[:8]
     top = ", ".join(f"{e.key} {self_dev(e) / 1e3:.2f} ms ({e.count} calls)"
                     for e in ops)
+    return (sum(e.count for e in dev) - copies, copies,
+            device_us(prof) / 1e6, top)
+
+
+def profile_showcase(device, wall, scene=None, phase="showcase-profile"):
+    """One profiled warm frame of `scene` (primitives_showcase): its device
+    events (kernels, and copies and memsets apart), device busy time, idle
+    share against the unprofiled warm wall, and the top operators by
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+    scene = primitives_showcase(W, H) if scene is None else scene
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, t = frame(device, scene=scene)
+    kernels, copies, busy, top = profile_summary(prof)
     log(phase, f"one warm frame: {kernels} kernel launches and "
         f"{copies} copies/memsets; profiled wall {t:.4f} s, device busy "
         f"{busy:.4f} s; unprofiled warm wall {wall:.4f} s -> device idle "
@@ -1269,10 +1543,21 @@ def main():
     mstats["shadow"].update(time_soft_shadow(device))
     check_soft_card_vs_cpu(device)
 
+    # 19-21. the training path: Adam steps at full width in both remat
+    # modes, counted; the strip's gradients against the plain compaction
+    # and the unrolled trace; the card against the CPU in float64
+    t0 = time.perf_counter()
+    tstats = {remat: train_steps(device, args.reps, remat)
+              for remat in ("level", "none")}
+    check_train_strip(device)
+    check_train_card_vs_cpu(device)
+    log("train", f"phases 19-21 took {time.perf_counter() - t0:.1f} s")
+
     kstats["compact"]["device_ms"] = compact_device_ms(
         device, W * H, b0, kstats["compact"]["ms"])
     profile_showcase(device, show_wall)
     profile_showcase(device, soft_wall, soft_textured(W, H), "soft-profile")
+    profile_train_step(device, tstats["level"]["ms"])
     if args.profile:
         profile_to(args.profile, device, b0, f"{kind}; {smi}", wall,
                    mesh_wall)
@@ -1288,7 +1573,10 @@ def main():
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": count,
                      "launches_showcase": slaunches[key],
-                     "launches_soft": softlaunches[key], **kstats[key]})
+                     "launches_soft": softlaunches[key],
+                     "launches_train_fwd": tstats["level"]["fwd"][key],
+                     "launches_train_bwd": tstats["level"]["bwd"][key],
+                     **kstats[key]})
     for name, key, replaces in (
             ("mesh_closest", "closest",
              "fast_ray_tracer_tpu/ops/mesh_pallas.py:262"),
@@ -1298,6 +1586,7 @@ def main():
                      "replaces": replaces,
                      "launches": mlaunches[f"mesh_{key}"],
                      "launches_soft": softlaunches[f"mesh_{key}"],
+                     "launches_train_fwd": 0, "launches_train_bwd": 0,
                      **mstats[key]})
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

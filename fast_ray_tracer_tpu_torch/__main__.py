@@ -34,12 +34,14 @@ from fast_ray_tracer_tpu_torch.utils.profiling import (
 def render_to_files(scene: SceneDesc, out: str, dtype=None,
                     chunk_pixels: Optional[int] = None, device="cuda",
                     quiet: bool = False, ppm: bool = True, png: bool = True,
-                    stats: Optional[dict] = None) -> np.ndarray:
+                    stats: Optional[dict] = None,
+                    checkpoint: Optional[str] = None) -> np.ndarray:
     """Render `scene` on `device` and write `<out>.ppm` and `<out>.png`
     (each unless switched off); returns the canvas. `dtype` defaults to
     float32 on the card and float64 on the CPU; `chunk_pixels` to the
     whole frame (render_scene still cuts chunks to its shadow-ray cap).
-    `stats`, if a dict, receives render_scene's bucket statistics."""
+    `stats`, if a dict, receives render_scene's bucket statistics;
+    `checkpoint` is render_scene's snapshot path (resume after a kill)."""
     device = torch.device(device)
     if dtype is None:
         dtype = torch.float64 if device.type == "cpu" else torch.float32
@@ -49,7 +51,8 @@ def render_to_files(scene: SceneDesc, out: str, dtype=None,
     with timer.phase("render"):
         canvas = render_scene(scene, dtype=dtype,
                               chunk_pixels=chunk_pixels or W * H,
-                              device=device, stats=stats)
+                              device=device, stats=stats,
+                              checkpoint_path=checkpoint)
     wall = timer.total()
     if not quiet:
         rays = rays_per_second(W * H, cam.usteps * cam.vsteps, 2, wall)
@@ -90,6 +93,9 @@ def main(argv=None, stats: Optional[dict] = None) -> int:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where to render (default cuda; nothing falls "
                     "back to the CPU)")
+    ap.add_argument("--checkpoint", default=None, metavar="PATH",
+                    help="snapshot path: resumable render progress (a "
+                    "killed render restarts where it stopped)")
     ap.add_argument("--quiet", action="store_true",
                     help="print nothing but errors")
     ap.add_argument("--ppm-only", action="store_true")
@@ -109,7 +115,8 @@ def main(argv=None, stats: Optional[dict] = None) -> int:
     render_to_files(scene, args.output or scene.config.output_file,
                     dtype=dtype, chunk_pixels=args.chunk, device=args.device,
                     quiet=args.quiet, ppm=not args.png_only,
-                    png=not args.ppm_only, stats=stats)
+                    png=not args.ppm_only, stats=stats,
+                    checkpoint=args.checkpoint)
     return 0
 
 

@@ -17,12 +17,17 @@ reproducing the reference's canvas code bit for bit
   values normalized to [0,1]; `decode` pre-applies the canvas's color
   decode (texture canvases are read without super-sampling).
 
-read_png decodes non-interlaced PNGs of 8 or 16 bits per sample in grey,
-grey+alpha, RGB and RGBA with all five scanline filters, without Pillow:
-alpha is dropped and grey repeats to RGB. The scanlines are reconstructed
-by the native core (native/png_core.cpp), since the Average and Paeth
-filters are sequential along a row. Palette and interlaced PNGs raise
-ValueError (the JAX package converts them through Pillow).
+read_png decodes every PNG the format allows, without Pillow: grey at 1,
+2, 4, 8 or 16 bits, palette at 1, 2, 4 or 8 (mapped through PLTE to RGB;
+tRNS is ignored), grey+alpha, RGB and RGBA at 8 or 16, plain or
+Adam7-interlaced, with all five scanline filters. Alpha is dropped and
+grey repeats to RGB. The values are the JAX package's, whose reader goes
+through Pillow for everything but 16-bit RGB: grey at 2 and 4 bits scales
+to 8 bits first (x85, x17) and 16-bit grey+alpha and RGBA keep only their
+high byte, divided by 255. The scanlines are reconstructed by the native
+core (native/png_core.cpp), since the Average and Paeth filters are
+sequential along a row. `read_image` reads the other formats through
+Pillow, which only it imports.
 """
 
 from __future__ import annotations
@@ -37,8 +42,13 @@ from fast_ray_tracer_tpu_torch.colors import rgb_to_srgb
 from fast_ray_tracer_tpu_torch.constants import SQRT3
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-# samples per pixel of each PNG colour type this reader decodes
-_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+# samples per pixel and allowed bit depths of each PNG colour type
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8),
+               4: (8, 16), 6: (8, 16)}
+# the Adam7 passes: (x0, y0, dx, dy)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 _PPM_WHITESPACE = b" \t\n\v\f\r"
 
 
@@ -139,21 +149,19 @@ def encode_png(samples: np.ndarray, adaptive: bool = False) -> bytes:
             + chunk(b"IEND", b""))
 
 
-def read_png(path: str, decode=None) -> np.ndarray:
-    """Load a PNG to an (H, W, 3) float64 canvas in [0, 1]; `decode`
-    pre-applies the canvas's color decode."""
-    path = str(path)
-    with open(path, "rb") as f:
-        data = f.read()
+def _png_chunks(data: bytes, path: str):
+    """(IHDR fields, PLTE bytes or None, the joined IDAT payload)."""
     if data[:8] != PNG_SIGNATURE:
         raise ValueError(f"not a PNG file: {path}")
-    pos, idat, hdr = 8, [], None
+    pos, idat, hdr, plte = 8, [], None, None
     while pos + 8 <= len(data):
         (length,) = struct.unpack(">I", data[pos:pos + 4])
         tag = data[pos + 4:pos + 8]
         payload = data[pos + 8:pos + 8 + length]
         if tag == b"IHDR":
             hdr = struct.unpack(">IIBBBBB", payload)
+        elif tag == b"PLTE":
+            plte = payload
         elif tag == b"IDAT":
             idat.append(payload)
         elif tag == b"IEND":
@@ -161,31 +169,109 @@ def read_png(path: str, decode=None) -> np.ndarray:
         pos += 12 + length
     if hdr is None:
         raise ValueError(f"PNG without an IHDR chunk: {path}")
-    w, h, depth, ctype, _, _, interlace = hdr
-    if ctype == 3:
-        raise ValueError(f"palette PNGs are not read (convert to RGB): "
-                         f"{path}")
-    if interlace != 0:
-        raise ValueError(f"interlaced PNGs are not read: {path}")
-    if ctype not in _PNG_CHANNELS or depth not in (8, 16):
-        raise ValueError(f"unsupported PNG (colour type {ctype}, "
-                         f"{depth} bits): {path}")
-    ch = _PNG_CHANNELS[ctype]
-    nbytes = depth // 8
-    bpp = ch * nbytes
-    raw = zlib.decompress(b"".join(idat))
-    if len(raw) < h * (w * bpp + 1):
+    return hdr, plte, b"".join(idat)
+
+
+def _png_samples(raw: bytes, w: int, h: int, ch: int, depth: int,
+                 path: str):
+    """One (sub)image's scanlines -> (h, w, ch) integer samples and the
+    number of bytes they took."""
+    bpp = max(1, ch * depth // 8)
+    stride = -(-w * ch * depth // 8)
+    size = h * (stride + 1)
+    if len(raw) < size:
         raise ValueError(f"truncated PNG image data in {path}")
     try:
-        rows = native.png_unfilter(raw, h, w * bpp, bpp)
+        rows = native.png_unfilter(raw[:size], h, stride, bpp)
     except ValueError as e:
         raise ValueError(f"{e} in {path}") from None
     if depth == 16:
-        vals = rows.reshape(h, w, ch, 2).astype(np.uint16)
-        c = (vals[..., 0] * 256 + vals[..., 1]).astype(np.float64) / 65535.0
+        v = rows.reshape(h, w, ch, 2).astype(np.uint16)
+        return v[..., 0] * 256 + v[..., 1], size
+    if depth == 8:
+        return rows.reshape(h, w, ch), size
+    # 1, 2 or 4 bits: samples packed from the high bit of each byte
+    bits = np.unpackbits(rows, axis=1)[:, :w * ch * depth]
+    bits = bits.reshape(h, w * ch, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(-1, dtype=np.uint8).reshape(h, w, ch), size
+
+
+def read_png(path: str, decode=None) -> np.ndarray:
+    """Load a PNG to an (H, W, 3) float64 canvas in [0, 1]; `decode`
+    pre-applies the canvas's color decode."""
+    path = str(path)
+    with open(path, "rb") as f:
+        data = f.read()
+    (w, h, depth, ctype, _, _, interlace), plte, idat = _png_chunks(data,
+                                                                    path)
+    if ctype not in _PNG_CHANNELS or depth not in _PNG_DEPTHS[ctype] \
+            or interlace not in (0, 1):
+        kind = {0: "grey", 2: "RGB", 3: "palette", 4: "grey+alpha",
+                6: "RGBA"}.get(ctype, f"colour type {ctype}")
+        raise ValueError(f"unsupported PNG ({kind} at {depth} bits, "
+                         f"interlace method {interlace}): {path}")
+    ch = _PNG_CHANNELS[ctype]
+    raw = zlib.decompress(idat)
+    if interlace == 0:
+        vals, _ = _png_samples(raw, w, h, ch, depth, path)
     else:
-        c = rows.reshape(h, w, ch).astype(np.float64) / 255.0
-    c = np.repeat(c[..., :1], 3, -1) if ch <= 2 else c[..., :3]
+        vals = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+        off = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw <= 0 or ph <= 0:
+                continue
+            sub, size = _png_samples(raw[off:], pw, ph, ch, depth, path)
+            vals[y0::dy, x0::dx] = sub
+            off += size
+    if ctype == 3:
+        if plte is None:
+            raise ValueError(f"palette PNG without a PLTE chunk: {path}")
+        pal = np.zeros((256, 3), np.uint8)
+        entries = np.frombuffer(plte, np.uint8)[:768].reshape(-1, 3)
+        pal[:len(entries)] = entries
+        c = pal[vals[..., 0]].astype(np.float64) / 255.0
+    elif depth == 16 and ctype in (0, 2):
+        c = vals.astype(np.float64) / 65535.0
+    elif depth == 16:
+        # 16-bit grey+alpha and RGBA: the high byte, as Pillow reads them
+        c = (vals >> 8).astype(np.float64) / 255.0
+    elif depth == 1:
+        c = vals.astype(np.float64)
+    else:
+        scale = {2: 85, 4: 17, 8: 1}[depth]
+        c = (vals * scale).astype(np.uint8).astype(np.float64) / 255.0
+    c = np.repeat(c[..., :1], 3, -1) if ch <= 2 and ctype != 3 else c[..., :3]
+    return decode(c) if decode is not None else c
+
+
+def read_image(path: str, decode=None) -> np.ndarray:
+    """An image in a format other than PPM and PNG (JPEG, GIF, TIFF, ...)
+    as an (H, W, 3) float64 canvas, read through Pillow as the JAX
+    package's texture path reads it (it converts the file to a PNG and
+    reads that back through Pillow). Without Pillow it raises ValueError
+    naming the file."""
+    path = str(path)
+    try:
+        from PIL import Image
+    except ImportError:
+        raise ValueError(f"reading {path} needs Pillow (or convert it to a "
+                         "PNG beside it)") from None
+    img = Image.open(path)
+    if img.mode in ("P", "PA"):
+        img = img.convert("RGB")
+    arr = np.asarray(img)
+    if arr.dtype == np.uint8:
+        c = arr.astype(np.float64) / 255.0
+    elif arr.dtype in (np.uint16, np.dtype(">u2")):
+        c = arr.astype(np.float64) / 65535.0
+    else:
+        c = arr.astype(np.float64)
+    if c.ndim == 2:
+        c = np.stack([c] * 3, axis=-1)
+    if c.shape[-1] in (2, 4):
+        c = c[..., :3] if c.shape[-1] == 4 else np.repeat(c[..., :1], 3, -1)
     return decode(c) if decode is not None else c
 
 

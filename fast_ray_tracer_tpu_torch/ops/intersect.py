@@ -55,15 +55,26 @@ def slot_tables(meta) -> np.ndarray:
 # per-type local intersectors: object-space rays (R, N, 3) -> t (R, N, k)
 # ---------------------------------------------------------------------------
 
+def _finite(c):
+    """(c where finite else 0, the finite mask). A ray far outside the
+    scene (the bucket's fill rows start at 1e30) overflows a quadratic's
+    c to inf in float32, and its disc to -inf or NaN: no root, as here.
+    But the backward of `a * c` then multiplies a zero cotangent by inf,
+    a NaN that reaches the transform's gradient; the cut-off c keeps the
+    product finite, the mask keeps the lane rootless."""
+    fin = torch.isfinite(c)
+    return torch.where(fin, c, 0.0), fin
+
+
 def _sphere_t(o, d):
     """src/shapes/sphere.c:13-39 (unit sphere at origin)."""
     a = dot3(d, d)
     b = 2.0 * dot3(d, o)
-    c = dot3(o, o) - 1.0
+    c, fin = _finite(dot3(o, o) - 1.0)
     disc = b * b - 4.0 * a * c
-    ok = disc >= 0.0
+    ok = fin & (disc >= 0.0)
     # double-where grad guard: sqrt'(0)=inf at tangent hits / misses
-    pos = disc > 0.0
+    pos = fin & (disc > 0.0)
     sq = torch.where(pos, torch.sqrt(torch.where(pos, disc, 1.0)), 0.0)
     inv2a = 1.0 / (2.0 * a)
     t0 = (-b - sq) * inv2a
@@ -104,14 +115,17 @@ def _cube_t(o, d):
 
 def _quadratic_pair(a, b, c, ok):
     """(lo, hi) roots of a t^2 + b t + c where `ok` (a != 0, disc >= 0),
-    with the double-where guard on the sqrt."""
+    with the double-where guard on the sqrt, and on a c that overflowed
+    (`_finite`)."""
+    c, fin = _finite(c)
     disc = b * b - 4.0 * a * c
-    pos = disc > 0.0
+    pos = fin & (disc > 0.0)
     sq = torch.where(pos, torch.sqrt(torch.where(pos, disc, 1.0)), 0.0)
     safe_a = torch.where(ok, a, 1.0)
     t0 = (-b - sq) / (2.0 * safe_a)
     t1 = (-b + sq) / (2.0 * safe_a)
-    return torch.minimum(t0, t1), torch.maximum(t0, t1), ok & (disc >= 0.0)
+    return (torch.minimum(t0, t1), torch.maximum(t0, t1),
+            ok & fin & (disc >= 0.0))
 
 
 def _caps(o, d, mn, mx, closed, r_min, r_max):
@@ -158,7 +172,11 @@ def _cone_t(o, d, params):
 
     a_zero = a.abs() < EPSILON
     b_zero = b.abs() < EPSILON
-    t_lin = -c / torch.where(b_zero, 1.0, 2.0 * b)
+    # the linear root's value as the reference's; an overflowed c
+    # (`_finite`) reaches only c's own gradient
+    c_safe, fin = _finite(c)
+    den = torch.where(b_zero, 1.0, 2.0 * b)
+    t_lin = torch.where(fin, -c_safe / den, -c / den.detach())
     lin0 = torch.where(a_zero & ~b_zero, t_lin, torch.inf)
 
     lo, hi, ok = _quadratic_pair(a, b, c, ~a_zero)

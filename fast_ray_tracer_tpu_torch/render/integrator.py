@@ -17,10 +17,14 @@ versions.
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from fast_ray_tracer_tpu_torch.constants import EPSILON
 from fast_ray_tracer_tpu_torch.ops import compact, mesh
@@ -462,6 +466,70 @@ def _level(ir, rt, orig, dirs):
     return comps, shade_direct(ir, rt, comps)
 
 
+# matrix-product operators: what the "dots" remat mode keeps saved
+_DOT_OPS = frozenset((torch.ops.aten.mm, torch.ops.aten.bmm,
+                      torch.ops.aten.addmm, torch.ops.aten.baddbmm,
+                      torch.ops.aten.dot, torch.ops.aten.mv))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of "dots": `op` is an overload
+    (aten.mm.default), the set holds their packets."""
+    return (CheckpointPolicy.MUST_SAVE if op.overloadpacket in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _checkpointed(fn, **kw):
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+    return run
+
+
+def _make_level_fn(remat):
+    """(ir, rt, o, d) -> (Comps, direct Triple), optionally checkpointed:
+    under autograd each wavefront level's big intermediates (candidate t
+    tables, shadow-ray batches, pattern evaluations) are recomputed in the
+    backward instead of stored, so activation memory grows with the lanes
+    a level keeps, not with its temporaries. Without autograd a
+    checkpointed level runs as the plain one. The compaction between
+    levels stays outside the checkpointed function, so recomputing a
+    level never launches a compaction kernel again.
+
+    remat modes (the JAX package's `_make_level_fn` strings):
+      False/"none"  store everything (least recompute, most memory)
+      True/"level"  one checkpoint per wavefront level
+      "nested"      the level checkpoint plus inner ones around
+                    prepare_computations and shade_direct: the level's
+                    backward holds one sub-block's internals at a time
+      "dots"        the level checkpoint with a selective policy that
+                    keeps matrix-product outputs saved and recomputes the
+                    rest. The port writes the ray transforms term by term
+                    (ops/vec.py) so that a lane's result never depends on
+                    its batch; no matrix product runs in a level, so this
+                    mode saves what "level" saves: the level's inputs and
+                    outputs."""
+    if remat is True:
+        remat = "level"
+    if not remat or remat == "none":
+        return _level
+    if remat == "level":
+        return _checkpointed(_level)
+    if remat == "nested":
+        prep = _checkpointed(prepare_computations)
+        shade = _checkpointed(shade_direct)
+
+        def _level_nested(ir, rt, orig, dirs):
+            comps = prep(ir, rt, orig, dirs)
+            return comps, shade(ir, rt, comps)
+        return _checkpointed(_level_nested)
+    if remat == "dots":
+        return _checkpointed(_level, context_fn=partial(
+            create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"remat must be False, True, 'none', 'level', "
+                     f"'nested' or 'dots': {remat!r}")
+
+
 def _wants(ir: SceneIR, rt: RenderStatics, depth: int):
     spec = rt.cfg.include_specular and depth > 0
     return spec and ir.meta.has_reflective, spec and ir.meta.has_refractive
@@ -482,16 +550,19 @@ def _split_children(total: Triple, n: int, want_refl: bool,
     return refl_raw, refr_raw
 
 
-def trace(ir: SceneIR, rt: RenderStatics, orig, dirs, depth: int) -> Triple:
+def trace(ir: SceneIR, rt: RenderStatics, orig, dirs, depth: int,
+          remat=False) -> Triple:
     """Wavefront Whitted trace: the reference's branching recursion
     (reflect + refract children, depth `remaining`) evaluated one level at
     a time over concatenated child batches — the exact oracle, 2^depth
-    lanes at the last level, same arithmetic per lane."""
+    lanes at the last level, same arithmetic per lane. `remat` checkpoints
+    each level for the backward (`_make_level_fn`)."""
     want_refl, want_refr = _wants(ir, rt, depth)
+    level_fn = _make_level_fn(remat)
     levels = []
     cur_o, cur_d = orig, dirs
     for lvl in range(depth + 1):
-        comps, direct = _level(ir, rt, cur_o, cur_d)
+        comps, direct = level_fn(ir, rt, cur_o, cur_d)
         levels.append((comps, direct))
         if lvl == depth or not (want_refl or want_refr):
             break
@@ -552,7 +623,7 @@ def _compactors(compaction: str):
 
 
 def trace_bucketed(ir: SceneIR, rt: RenderStatics, orig, dirs, depth: int,
-                   buckets, compaction: str = "auto"):
+                   buckets, compaction: str = "auto", remat=False):
     """Wavefront trace with device-side static-bucket compaction.
 
     Each level's live children are compacted, in order, into a bucket of
@@ -565,19 +636,28 @@ def trace_bucketed(ir: SceneIR, rt: RenderStatics, orig, dirs, depth: int,
 
     Per-lane arithmetic is identical to `trace`, so the canvas is too.
     `compaction="plain"` forces the plain torch compaction on any device;
-    it exists for the tests that hold the kernels against it."""
+    it exists for the tests that hold the kernels against it.
+
+    Differentiable: compact_rows and expand_rows are each other's VJP, so
+    the backward runs both kernels again on the card. The value gates of
+    `_spawn` stay on under autograd (ungated spawning regrows the 2^depth
+    graph), so a material whose refl or Tf is exactly zero gets
+    subgradient 0 through the subtree it prunes; any nonzero channel gets
+    the exact gradient. `remat` checkpoints each level (`_make_level_fn`);
+    the compactions stay outside the checkpoints."""
     compact_fn, expand_fn = _compactors(compaction)
     want_refl, want_refr = _wants(ir, rt, depth)
+    level_fn = _make_level_fn(remat)
     overflow = torch.zeros((), dtype=torch.bool, device=orig.device)
     if not (want_refl or want_refr):
-        comps, direct = _level(ir, rt, orig, dirs)
+        comps, direct = level_fn(ir, rt, orig, dirs)
         return combine_specular(ir, rt, comps, direct, None,
                                 None).mask(comps.valid), overflow
 
     levels = []
     cur_o, cur_d = orig, dirs
     for lvl in range(depth + 1):
-        comps, direct = _level(ir, rt, cur_o, cur_d)
+        comps, direct = level_fn(ir, rt, cur_o, cur_d)
         entry = {"comps": comps, "direct": direct, "act": None, "bucket": 0}
         levels.append(entry)
         if lvl == depth:

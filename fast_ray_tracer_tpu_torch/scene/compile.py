@@ -5,10 +5,10 @@ scenes the port renders: the six analytic shapes under any nesting of
 groups and CSG trees, triangles and smooth triangles, OBJ meshes
 (scene/obj_loader.py), large meshes Morton-ordered into 64-triangle
 clusters (never those inside a CSG tree), materials, procedural patterns
-and uv maps with their children, texture images (PPM and PNG, read once
-per path into a flat atlas), and point, area, circle and hemisphere
-lights, the deterministic sample points of area and circle lights
-computed on the host in float64. Transform chains are
+and uv maps with their children, texture images (PPM and PNG, other
+formats through Pillow; read once per path into a flat atlas), and
+point, area, circle and hemisphere lights, the deterministic sample
+points of area and circle lights computed on the host in float64. Transform chains are
 composed and inverted on the host, group hierarchies dissolve into
 per-leaf world->object inverses, triangles are pre-transformed to world
 space, and the post-divide shadow-walk rank of every leaf is recovered by
@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from fast_ray_tracer_tpu_torch.colors import INPUT_DECODE, identity
-from fast_ray_tracer_tpu_torch.io.ppm import read_png, read_ppm
+from fast_ray_tracer_tpu_torch.io.ppm import read_image, read_png, read_ppm
 from fast_ray_tracer_tpu_torch.sampling.cmj import cmj_points_static
 from fast_ray_tracer_tpu_torch.scene import divide as div
 from fast_ray_tracer_tpu_torch.scene import ir as IR
@@ -142,21 +142,21 @@ class _Tables:
         resources, the first use's decode choice sticks
         (yaml_parser/pattern.py:262-282). Paths resolve against the scene
         root; a file in another format reads the PNG beside it, as the
-        reference's converted copy (yaml_parser/pattern.py:255-261)."""
+        reference's converted copy (yaml_parser/pattern.py:255-261), and
+        without one the file itself through Pillow (`read_image`)."""
         if file in self.tex_by_file:
             return self.tex_by_file[file]
         lookup = file
         if not file.endswith((".png", ".ppm")):
             lookup = file[:-3] + "png"
         path = _resolve(lookup, self.root_dir)
-        if path is None and lookup != file \
-                and _resolve(file, self.root_dir) is not None:
-            raise ValueError(f"texture {file!r}: only PPM and PNG files are "
-                             "read; convert it to a PNG beside it")
+        read = read_ppm if lookup.endswith(".ppm") else read_png
+        if path is None and lookup != file:
+            path = _resolve(file, self.root_dir)
+            read = read_image
         if path is None:
             raise FileNotFoundError(f"texture not found: {file}")
         decode = self.decode if decode_to_linear else None
-        read = read_ppm if path.endswith(".ppm") else read_png
         self.tex_imgs.append(np.asarray(read(path, decode=decode),
                                         dtype=np.float64))
         self.tex_by_file[file] = len(self.tex_imgs) - 1

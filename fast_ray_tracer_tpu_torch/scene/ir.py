@@ -166,6 +166,16 @@ class SceneIR:
     def table_names(cls):
         return [f.name for f in fields(cls) if f.name != "meta"]
 
+    def tables(self) -> Dict[str, torch.Tensor]:
+        """Every table, keyed by field name."""
+        return {name: getattr(self, name) for name in self.table_names()}
+
+    def float_tables(self) -> Dict[str, torch.Tensor]:
+        """The floating-point tables, keyed by field name: the scene's
+        continuous parameters and its cluster boxes."""
+        return {k: t for k, t in self.tables().items()
+                if t.is_floating_point()}
+
     def to(self, device, dtype) -> "SceneIR":
         """Move every table to `device`; float tables become `dtype`."""
         out = {}

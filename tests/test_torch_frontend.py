@@ -8,10 +8,9 @@ decode to 1e-12 (both float64: numpy here, jnp under x64 there); the PNG
 writer's bytes are equal; the readers are bitwise equal on every format
 both read in full (8-bit grey, grey+alpha, RGB and RGBA through Pillow on
 the JAX side, 16-bit grey, 16-bit RGB through its own decoder), with each
-of the five scanline filters. The port's reader refuses palette and
-interlaced PNGs, which the JAX package converts through Pillow, and reads
-16-bit PNGs with alpha at 16 bits, which Pillow truncates to 8 (ROADMAP
-C9). Its loader raises ValueError on malformed pattern colors, where the
+of the five scanline filters, and on 16-bit grey+alpha and RGBA, which
+both read at 8 bits (Pillow's truncation, ROADMAP C9; palette, interlaced
+and low-bit-depth PNGs are held in tests/test_torch_train.py). Its loader raises ValueError on malformed pattern colors, where the
 JAX loader raises KeyError, IndexError or TypeError, or loads them (C4).
 The command line's PPMs agree to 1 of 65535 per channel.
 """
@@ -315,9 +314,9 @@ def test_read_png_refuses_unknown_filter(tmp_path):
 
 @pytest.mark.parametrize("fmt", ["grey16", "grey_alpha16", "rgba16"])
 def test_read_png_16_bit_other_formats(fmt, tmp_path):
-    """16-bit grey, grey+alpha and RGBA: the port reads all 16 bits of
-    every sample; the JAX package reads grey alike (bitwise) and, through
-    Pillow, truncates the formats with alpha to 8 bits (fault C9)."""
+    """16-bit grey, grey+alpha and RGBA, bitwise the JAX package's read:
+    grey at all 16 bits; the formats with alpha at their high byte over
+    255, as Pillow reads them for the JAX package (fault C9)."""
     c = {"grey16": 1, "grey_alpha16": 2, "rgba16": 4}[fmt]
     s = np.random.default_rng(c).integers(0, 65536, (9, 13, c)) \
         .astype(np.uint16)
@@ -325,23 +324,23 @@ def test_read_png_16_bit_other_formats(fmt, tmp_path):
     path.write_bytes(_png_bytes(s, [0, 1, 2, 3, 4], {1: 0, 2: 4, 4: 6}[c]))
     got = tppm.read_png(str(path))
     want = s[..., :1].repeat(3, -1) if c <= 2 else s[..., :3]
-    assert np.array_equal(got, want / 65535.0)
-    jax_got = jppm.read_png(str(path))
-    if c == 1:
-        assert np.array_equal(got, jax_got)
-    else:
-        np.testing.assert_allclose(got, jax_got, rtol=0, atol=1 / 255)
+    want = want / 65535.0 if c == 1 else (want >> 8) / 255.0
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, jppm.read_png(str(path)))
 
 
 @pytest.mark.parametrize("kind", ["palette", "interlaced"])
 def test_read_png_refuses_palette_and_interlaced(kind, tmp_path):
-    s = np.zeros((4, 4, 1 if kind == "palette" else 3), np.uint8)
+    """The reader reads palette and Adam7 PNGs (fault C9), and refuses the
+    malformed ones: a palette at 16 bits, an unknown interlace method."""
+    s = np.zeros((4, 4, 1 if kind == "palette" else 3), np.uint16)
     path = tmp_path / f"{kind}.png"
     if kind == "palette":
         path.write_bytes(_png_bytes(s, [0], 3, plte=bytes(range(6))))
     else:
-        path.write_bytes(_png_bytes(s, [0], 2, interlace=1))
-    with pytest.raises(ValueError, match=kind):
+        path.write_bytes(_png_bytes(s.astype(np.uint8), [0], 2, interlace=2))
+    match = "palette at 16 bits" if kind == "palette" else "interlace method 2"
+    with pytest.raises(ValueError, match=match):
         tppm.read_png(str(path))
 
 
