@@ -101,12 +101,49 @@ Phases, one line each or more:
  21. train card against CPU: the gradients at 24x12 in float64, bucketed
      with remat="level", within TRAIN_CARD_CPU_RTOL of each field's
      largest |g|.
+ 22. DoF frame: glass_spheres(800, 400) with a circular aperture and 2x2
+     camera jitter at seed SEED, float32, one chunk: the launches of all
+     four kernels (each compaction kernel at least once), no overflow, a finite canvas, the warm wall (median of
+     --reps); the same seed bit for bit, the plain-compaction frame bit
+     for bit, another seed another frame;
+ 23. photon pass: trace_photons for cornell_box(800, 800) (100,000
+     photons a map, the 10x10 jittered area light, the 10,092-triangle
+     block) in float32, from the render's photon root at SEED: seconds,
+     batches and host syncs, photons stored per map and light against
+     its target (a light that stalls prints why), each map's grid, peak
+     device memory;
+ 24. Cornell GI frame: render_scene(cornell_box(800, 800)) in float32 at
+     SEED, photon pass included, the whole frame one call: the launches
+     of all four kernels (each at least once), no overflow, a finite
+     canvas, every warm frame bitwise the first; the warm wall (median of
+     --reps), the photon pass's share, pixels/s, traced rays/s (primary
+     rays plus the probe's children, each with 100 shadow and 9 gather
+     rays), peak device memory; then three kinds of mesh launch of one
+     more warm frame, as the kernel took and returned them: the photon
+     wave's first and last closest calls (with their keep), the frame's
+     first shadow call (chunk 0, level 0: chunk rays x 100 light samples)
+     and its first final-gather closest call (9 rays a lane); each
+     kernel's in-frame output on every row (the wave's) or on rows spread
+     over the batch at a fixed stride (the others) bitwise against the
+     plain version, and its median time on the whole batch beside its
+     bounds;
+ 25. GI equality: the Cornell frame with the plain compaction, bit for
+     bit the kernel frame (the plain compaction changes no draw);
+ 26. GI card against CPU: the Cornell box at 32x32 in float64 with
+     caustics and the global map's visualization, no final gather, the
+     light unjittered (deterministic given the maps), the maps traced
+     once on the CPU and moved to the card: within CARD_CPU_ATOL, with
+     the share of pixels past 1e-9;
+ 27. GI output: the sha256 of the Cornell frame's PPM, and the PNG that
+     `python -m fast_ray_tracer_tpu_torch` writes from cornell_box.yml
+     with --seed SEED, read back bitwise equal to the frame's encode.
 Then the compaction's device time per call from torch.profiler, one
-profiled warm train step, and one
-profiled warm showcase and soft frame each (device events, device busy
-time, idle share against the warm wall, and top operators by device
-time), after every wall-clock phase (the profiler leaves launches
-slower); the card's
+profiled warm train step, one profiled warm showcase and soft frame each
+(device events, device busy time, idle share against the warm wall, and
+top operators by device time), and the middle chunk of a warm Cornell
+frame (the same, the chunk's idle share against its unprofiled wall,
+and the irradiance estimate's device time and share), after every
+wall-clock phase (the profiler leaves launches slower); the card's
 nvidia-smi line, a JSON line of per-kernel results and, last, the device
 JSON line. Any failure raises and exits non-zero.
 --reps sets the number of warm frames of each render. With --profile, the
@@ -147,14 +184,20 @@ from fast_ray_tracer_tpu_torch.render.integrator import (
     FILL_ROW, PROBE_CEILING, build_statics, prepare_computations,
     spawn_counts, trace, trace_bucketed,
 )
+from fast_ray_tracer_tpu_torch.render import photon
+from fast_ray_tracer_tpu_torch.render import render as render_module
 from fast_ray_tracer_tpu_torch.render.render import (
-    SHADOW_RAYS_PER_CHUNK, pixel_colors, quantize_buckets, render_scene,
+    PHOTON_FOLD, SHADOW_RAYS_PER_CHUNK, pixel_colors, quantize_buckets,
+    render_scene,
 )
 from fast_ray_tracer_tpu_torch.sampling.cmj import cmj_points_static
+from fast_ray_tracer_tpu_torch.sampling.rng import RNG
 from fast_ray_tracer_tpu_torch.scene.compile import compile_scene
 from fast_ray_tracer_tpu_torch.scene.demo import (
-    SOFT_DIR, glass_spheres, mesh_torus, primitives_showcase, soft_textured,
+    CORNELL_DIR, SOFT_DIR, cornell_box, glass_spheres, mesh_torus,
+    primitives_showcase, soft_textured,
 )
+from fast_ray_tracer_tpu_torch.scene.model import ApertureDesc, replace
 from fast_ray_tracer_tpu_torch.scene.ir import PAT_UV_TEXTURE, SceneIR, SceneMeta
 
 W, H = 800, 400
@@ -215,15 +258,16 @@ def median_ms(fn, reps=30):
     return statistics.median(times)
 
 
-def device_us(prof):
+def device_us(prof, rows=None):
     """Device time (us) in a torch.profiler run: device-side rows only
     (kernels, copies, memsets); an aten op's row repeats the device time of
-    the kernels it launched."""
+    the kernels it launched. `rows`: the run's key_averages(), when the
+    caller has them already (each call walks every event again)."""
     from torch.autograd import DeviceType
+    rows = prof.key_averages() if rows is None else rows
     return sum(getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0))
-               for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA)
+               for e in rows if e.device_type == DeviceType.CUDA)
 
 
 def profiled_ms(fn, calls=20):
@@ -379,13 +423,13 @@ def compact_device_ms(device, n0, b0, event_ms):
     return ms
 
 
-def frame(device, compaction="auto", stats=None, scene=None):
+def frame(device, compaction="auto", stats=None, scene=None, seed=None):
     scene = glass_spheres(W, H) if scene is None else scene
     cam = scene.camera
     t0 = time.perf_counter()
     canvas = render_scene(scene, dtype=torch.float32, device=device,
                           chunk_pixels=cam.width * cam.height,
-                          compaction=compaction, stats=stats)
+                          compaction=compaction, stats=stats, seed=seed)
     torch.cuda.synchronize()
     return canvas, time.perf_counter() - t0
 
@@ -843,6 +887,416 @@ def check_card_vs_cpu(device, w=64, h=32):
     if not diff.max() <= CARD_CPU_ATOL:
         raise AssertionError("card and CPU canvases differ past "
                              f"{CARD_CPU_ATOL}")
+
+
+# ---------------------------------------------------------------------------
+# the stochastic and photon-GI slice
+# ---------------------------------------------------------------------------
+
+SEED = 7                  # the stochastic frames' seed
+CW = CH = 800             # the Cornell frame
+
+
+def dof_scene():
+    """glass_spheres(800, 400) through a circular aperture with 2x2 camera
+    jitter."""
+    sc = glass_spheres(W, H)
+    sc.camera = replace(sc.camera, usteps=2, vsteps=2, aperture=ApertureDesc(
+        kind="CIRCULAR_APERTURE", size=0.05, params=(1.0,), jitter=True))
+    return sc
+
+
+def render_dof(device, reps):
+    """The stochastic camera path, counted: both compaction kernels must
+    launch; the same seed bitwise, the plain compaction bitwise, another
+    seed another frame."""
+    scene = dof_scene()
+    soft_counts()
+    stats = {}
+    canvas, cold = frame(device, stats=stats, scene=scene, seed=SEED)
+    launches = {**compact.LAUNCHES, **mesh.LAUNCHES}
+    log("dof", f"{W}x{H} 2x2 jittered samples, circular aperture, depth 5 "
+        f"float32, seed {SEED}: launches {launches}, buckets "
+        f"{stats['buckets']}, escalations {stats['escalations']}, exact "
+        f"chunks {stats['exact_chunks']}, first call {cold:.3f} s")
+    if min(launches["compact"], launches["expand"]) < 1:
+        raise AssertionError(f"a kernel of the DoF path never ran: "
+                             f"{launches}")
+    if stats["escalations"] or stats["exact_chunks"]:
+        raise AssertionError("bucket overflow after calibration")
+    if canvas.shape != (H, W, 3) or not np.isfinite(canvas).all():
+        raise AssertionError("DoF canvas not finite or of the wrong shape")
+    walls = []
+    for _ in range(reps):
+        again, t = frame(device, scene=scene, seed=SEED)
+        walls.append(t)
+    wall = statistics.median(walls)
+    plain, _ = frame(device, compaction="plain", scene=scene, seed=SEED)
+    other, _ = frame(device, scene=scene, seed=SEED + 1)
+    same = np.array_equal(canvas, again)
+    same_plain = np.array_equal(canvas, plain)
+    moved = float(np.abs(other - canvas).max())
+    log("dof", f"warm wall {wall:.4f} s (median of {walls}), "
+        f"{W * H / wall:.4g} pixels/s; seed {SEED} again bitwise={same}; "
+        f"plain-compaction frame bitwise={same_plain}; seed {SEED + 1}: max "
+        f"|difference| {moved:.4f}")
+    if not (same and same_plain):
+        raise AssertionError("the DoF frame is not a function of its seed")
+    if not moved > 1e-3:
+        raise AssertionError("another seed rendered the same DoF frame")
+    return launches, wall
+
+
+def photon_pass(device):
+    """The Cornell box's photon pass alone, as render_scene runs it at
+    SEED: seconds, batches, syncs, stores per map and light, peak
+    memory."""
+    scene = cornell_box(CW, CH)
+    cfg = scene.config
+    ir = compile_scene(scene, dtype=torch.float32, device=device)
+    rt = build_statics(ir, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    stats = {}
+    maps = photon.trace_photons(
+        ir, rt, RNG(SEED, device).fold(PHOTON_FOLD), torch.float32,
+        caustic=cfg.include_caustics, global_=cfg.include_final_gather,
+        stats=stats)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(device)
+    for m, name in ((photon.CAUSTIC, "caustic"), (photon.GLOBAL, "global")):
+        st, pm = stats[m], maps[m]
+        log("photons", f"{name} map: targets {st['targets']}, stored "
+            f"{st['stored']}, {st['emitted']} photons emitted in "
+            f"{st['batches']} batches, {st['syncs']} host syncs; grid "
+            f"{pm.dims} of {pm.cell_size} cells, at most "
+            f"{pm.max_neighbors} photons in a 27-cell block"
+            + (f"; stalled: {st['stalled']}" if st["stalled"] else ""))
+        if st["stored"] != st["targets"] and not st["stalled"]:
+            raise AssertionError(f"the {name} map missed its targets")
+    log("photons", f"{cfg.photon_count} photons a map, float32, seed {SEED}: "
+        f"{secs:.4f} s, peak device memory {peak / 2**30:.3f} GiB")
+    return {"seconds": secs, "peak": peak, "stats": stats}
+
+
+def render_cornell(device, reps):
+    """The GI main path, counted: every kernel must launch. Then the warm
+    wall (median of reps), each warm frame bitwise the first, pixels/s,
+    traced rays/s and peak memory."""
+    scene = cornell_box(CW, CH)
+    soft_counts()
+    stats = {}
+    canvas, cold = frame(device, stats=stats, scene=scene, seed=SEED)
+    launches = {**compact.LAUNCHES, **mesh.LAUNCHES}
+    log("cornell", f"{CW}x{CH} depth 5 float32, seed {SEED}, photon pass "
+        f"included: launches {launches}, buckets {stats['buckets']}, "
+        f"escalations {stats['escalations']}, exact chunks "
+        f"{stats['exact_chunks']}, first call {cold:.3f} s (photon pass "
+        f"{stats['photon_seconds']:.3f} s)")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"a kernel of the GI path never ran: "
+                             f"{launches}")
+    if stats["escalations"] or stats["exact_chunks"]:
+        raise AssertionError("bucket overflow after calibration")
+    if canvas.shape != (CH, CW, 3) or not np.isfinite(canvas).all():
+        raise AssertionError("Cornell canvas not finite or of the wrong "
+                             "shape")
+    walls, photon_s = [], []
+    for _ in range(reps):
+        torch.cuda.reset_peak_memory_stats(device)
+        st = {}
+        again, t = frame(device, stats=st, scene=scene, seed=SEED)
+        walls.append(t)
+        photon_s.append(st["photon_seconds"])
+        if not np.array_equal(again, canvas):
+            raise AssertionError("a warm Cornell frame differs from the "
+                                 "first at the same seed")
+    peak = torch.cuda.max_memory_allocated(device)
+    wall = statistics.median(walls)
+    ir = compile_scene(scene, dtype=torch.float32, device=device)
+    rt = build_statics(ir, scene.config)
+    o, d = pixel_rays(scene, device)
+    spawned = torch.stack(spawn_counts(ir, rt, o, d,
+                                       scene.config.di_path_length)).tolist()
+    cfg = scene.config
+    per_lane = 1 + ir.meta.max_light_samples + cfg.gi_usteps * cfg.gi_vsteps
+    traced = (CW * CH + sum(spawned)) * per_lane
+    log("cornell", f"warm wall {wall:.4f} s (median of {walls}; photon "
+        f"pass {statistics.median(photon_s):.4f} s of it), "
+        f"{CW * CH / wall:.4g} pixels/s, {traced / wall:.4g} traced rays/s "
+        f"({traced} rays: spawn counts {spawned}, {per_lane - 1} shadow and "
+        f"gather rays per lane); peak device memory {peak / 2**30:.3f} GiB; "
+        f"warm frames bitwise the first")
+    return canvas, launches, wall, {"peak": peak, "traced": traced}
+
+
+def cornell_mesh_calls(device):
+    """One warm Cornell frame at SEED with four of its mesh launches
+    recorded as the kernel took and returned them: the photon wave's first
+    and last closest calls (with their keep), the frame's first shadow call
+    (chunk 0, level 0) and its first final-gather closest call. Returns
+    {label: (query, tables, origins, directions, keep, outputs)}."""
+    calls, inside = {}, [None]
+    real = {"closest": mesh.closest_cuda, "shadow": mesh.shadow_cuda,
+            "wave": photon.photon_bounce_wave, "gather": photon.final_gather}
+    labels = {("closest", "wave"): "photon wave closest",
+              ("closest", "gather"): "gather closest",
+              ("shadow", None): "shadow"}
+
+    def within(name):
+        def run(*args, **kw):
+            inside[0] = name
+            try:
+                return real[name](*args, **kw)
+            finally:
+                inside[0] = None
+        return run
+
+    def record(query):
+        def run(m, orig, dirs, *keep):
+            out = real[query](m, orig, dirs, *keep)
+            label = labels.get((query, inside[0]))
+            if label == "photon wave closest" and label in calls:
+                label = "photon wave closest, last"
+            if label is not None and (label not in calls
+                                      or label.endswith("last")):
+                calls[label] = (query, m, orig.clone(), dirs.clone(),
+                                keep[0] if keep else None,
+                                tuple(x.clone() for x in out))
+            return out
+        return run
+
+    mesh.closest_cuda, mesh.shadow_cuda = record("closest"), record("shadow")
+    photon.photon_bounce_wave = within("wave")
+    photon.final_gather = within("gather")
+    try:
+        frame(device, scene=cornell_box(CW, CH), seed=SEED)
+    finally:
+        mesh.closest_cuda, mesh.shadow_cuda = real["closest"], real["shadow"]
+        photon.photon_bounce_wave = real["wave"]
+        photon.final_gather = real["gather"]
+    return calls
+
+
+def check_cornell_mesh(device, rows=1 << 20):
+    """The mesh kernels on the Cornell frame's recorded launches
+    (cornell_mesh_calls): each in-frame output, on every row of a batch of
+    at most `rows` rays and else on `rows` rays at a fixed stride through
+    it, bitwise against the plain version on the same rows; the kernel
+    again on the whole batch bitwise its in-frame output; its median time
+    on the whole batch beside its two bounds. Returns per-label numbers."""
+    calls = cornell_mesh_calls(device)
+    want = ("photon wave closest", "photon wave closest, last", "shadow",
+            "gather closest")
+    if sorted(calls) != sorted(want):
+        raise AssertionError(f"the Cornell frame made no {want} calls: "
+                             f"{sorted(calls)}")
+    fns = {"closest": (mesh.closest_cuda, mesh.closest_plain),
+           "shadow": (mesh.shadow_cuda, mesh.shadow_plain)}
+    out = {}
+    for label in want:
+        query, m, o, d, keep, got = calls[label]
+        kern, plain = fns[query]
+        args = (keep,) if query == "closest" else ()
+        n = o.shape[0]
+        step = -(-n // rows)
+        idx = torch.arange(0, n, step, device=device)
+        same, err = _equal_outputs(tuple(x[idx] for x in got),
+                                   plain(m, o[idx], d[idx], *args))
+        again, _ = _equal_outputs(kern(m, o, d, *args), got)
+        ms = median_ms(lambda: kern(m, o, d, *args), reps=5)
+        bound, by, ops, bound_pairs, passed = mesh_bound(
+            m, o, d, 5 if query == "shadow" else 0)
+        live = int((o[:, 0] < 1e29).sum())
+        hits = int(torch.isfinite(got[0] if query == "closest"
+                                  else got[1]).sum())
+        log("cornell-mesh", f"{label}: {n} rays ({live} live, {hits} hits) "
+            f"x {m.tris.shape[1] * mesh.SC} triangles"
+            + (" with keep" if keep is not None else "")
+            + f"; in-frame output on {idx.shape[0]} rows (stride {step}) "
+            f"against the plain version: equal={same}; the kernel again on "
+            f"all rows equal={again}; kernel {ms:.3f} ms (median of 5); "
+            f"bound {bound:.4f} ms by {by} ({bound / ms:.2%} reached); "
+            f"passed pairs {passed}: bound {bound_pairs:.4f} ms "
+            f"({bound_pairs / ms:.2%} reached)")
+        if not (same and again):
+            raise AssertionError(f"mesh {query} != plain on the Cornell "
+                                 f"frame's {label} launch")
+        out[label] = {"rays": n, "ms": ms, "bound_ms": bound,
+                      "bound_pairs_ms": bound_pairs, "max_abs_err": err}
+    return out
+
+
+def check_cornell_equal(device, canvas):
+    plain, _ = frame(device, compaction="plain", scene=cornell_box(CW, CH),
+                     seed=SEED)
+    same = np.array_equal(canvas, plain)
+    log("cornell-equal", f"kernel frame vs plain-compaction frame at seed "
+        f"{SEED} bitwise={same}")
+    if not same:
+        raise AssertionError("the Cornell kernel frame differs from the "
+                             "plain frame")
+
+
+def check_cornell_card_vs_cpu(device, w=32, h=32, photons=4000):
+    """The Cornell box at w x h in float64, caustics and the global map's
+    visualization, no final gather, the light unjittered: the maps traced
+    once on the CPU (one torch thread) and moved to the card; trace_bucketed
+    on both devices, every level in the probe's bucket; within
+    CARD_CPU_ATOL."""
+    scene = cornell_box(w, h)
+    scene.lights = [replace(scene.lights[0], jitter=False)]
+    scene.config = replace(scene.config, photon_count=photons,
+                           include_final_gather=False,
+                           visualize_photon_map=True)
+    cfg = scene.config
+    depth = cfg.di_path_length
+    buckets = [int(np.ceil(w * h * PROBE_CEILING / 256.0)) * 256] * depth
+    cpu = torch.device("cpu")
+    canvases = {}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        ir = compile_scene(scene, dtype=torch.float64, device=cpu)
+        maps = photon.trace_photons(ir, build_statics(ir, cfg), RNG(SEED),
+                                    torch.float64, caustic=True,
+                                    global_=True)
+        for dev in (device, cpu):
+            ir = compile_scene(scene, dtype=torch.float64, device=dev)
+            rt = build_statics(ir, cfg)._replace(gi_hook=photon.make_gi_hook(
+                {m: pm.to(dev) for m, pm in maps.items()}, cfg))
+            o, d = pixel_rays(scene, dev, dtype=torch.float64)
+            tr, ovf = trace_bucketed(ir, rt, o, d, depth, buckets)
+            if bool(ovf):
+                raise AssertionError("card-vs-CPU Cornell frame overflowed")
+            canvases[dev.type] = ((tr.a + tr.d + tr.s) / 3.0).cpu().numpy()
+    finally:
+        torch.set_num_threads(threads)
+    diff = np.abs(canvases["cuda"] - canvases["cpu"]).max(-1)
+    log("cornell-card-vs-cpu", f"{w}x{h} float64, {photons} photons a map "
+        f"({maps[photon.CAUSTIC].n} caustic, {maps[photon.GLOBAL].n} global "
+        f"stored): max |card - cpu| {diff.max():.3e}; pixels past 1e-9: "
+        f"{(diff > 1e-9).mean():.4%}, past 1e-12: {(diff > 1e-12).mean():.4%}"
+        f", bitwise equal {(diff == 0).mean():.4%}; tolerance "
+        f"{CARD_CPU_ATOL}")
+    if not diff.max() <= CARD_CPU_ATOL:
+        raise AssertionError("card and CPU Cornell canvases differ past "
+                             f"{CARD_CPU_ATOL}")
+
+
+def cornell_output(canvas):
+    """The Cornell frame's PPM hash; the command line's PNG of
+    cornell_box.yml at SEED, read back bitwise equal to the frame's
+    encode."""
+    ppm = construct_ppm(canvas)
+    path = os.path.join(tempfile.gettempdir(), f"frt_cornell_box_{CW}x{CH}.ppm")
+    with open(path, "wb") as f:
+        f.write(ppm)
+    log("cornell-output", f"{path} sha256 {hashlib.sha256(ppm).hexdigest()}")
+    cornell_box(CW, CH)                  # writes the YAML at first use
+    os.makedirs(OUT_DIR, exist_ok=True)
+    stem = os.path.join(OUT_DIR, "cornell_box")
+    t0 = time.perf_counter()
+    cli_main([str(CORNELL_DIR / "cornell_box.yml"), "-o", stem, "--seed",
+              str(SEED), "--quiet", "--png-only"])
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    with open(stem + ".png", "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    same = np.array_equal(np.round(read_png(stem + ".png") * 65535.0),
+                          png16(canvas))
+    log("cornell-output", f"{stem}.png (command line, --seed {SEED}, "
+        f"{t:.3f} s) sha256 {digest}; read back bitwise equal to the "
+        f"frame's 16-bit encode: {same}")
+    if not same:
+        raise AssertionError("the command line's Cornell PNG differs from "
+                             "the frame")
+
+
+@contextlib.contextmanager
+def around_chunk(k, before, after):
+    """Call before() and after() around chunk k's pixel_colors in every
+    render_scene call inside the context, the card synchronized at both."""
+    real = render_module.pixel_colors
+    calls = [0]
+
+    def run(*args, **kw):
+        mine = calls[0] == k
+        calls[0] += 1
+        if mine:
+            torch.cuda.synchronize()
+            before()
+        out = real(*args, **kw)
+        if mine:
+            torch.cuda.synchronize()
+            after()
+        return out
+
+    render_module.pixel_colors = run
+    try:
+        yield
+    finally:
+        render_module.pixel_colors = real
+
+
+def profile_cornell(device, k=1):
+    """Chunk k (of 3) of a warm Cornell frame: its wall in one unprofiled
+    frame, then its device events under torch.profiler in another: kernel
+    launches, copies and memsets, device busy time and the idle share
+    against the unprofiled chunk wall, the irradiance estimate's device
+    time (the kernels launched inside its range) and share, and the top
+    operators. Device busy counts kernels, copies and memsets, not the
+    ranges' own device rows, which span the kernels inside them. One chunk:
+    reading the events of a whole frame (~250,000 launches) takes minutes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    scene = cornell_box(CW, CH)
+    span = []
+    with around_chunk(k, lambda: span.append(time.perf_counter()),
+                      lambda: span.append(time.perf_counter())):
+        frame(device, scene=scene, seed=SEED)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with around_chunk(k, lambda: (prof.start(),
+                                  span.append(time.perf_counter())),
+                      lambda: (span.append(time.perf_counter()),
+                               prof.stop())):
+        frame(device, scene=scene, seed=SEED)
+    if len(span) != 4:
+        raise AssertionError(f"the Cornell frame has no chunk {k}")
+    wall, profiled = span[1] - span[0], span[3] - span[2]
+    t0 = time.perf_counter()
+    events = prof.events()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)]
+    copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in dev)
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e6
+    cpu = [e for e in events if e.device_type == DeviceType.CPU]
+    ranges = [e for e in cpu if e.name == "irradiance_estimate"]
+    irr = sum(e.device_time_total for e in ranges) / 1e6
+    spans = sum(e.time_range.elapsed_us() for e in events
+                if e.device_type == DeviceType.CUDA
+                and getattr(e, "is_user_annotation", False)) / 1e6
+    ops = {}
+    for e in cpu:
+        if e.name.startswith("aten::"):
+            t, n = ops.get(e.name, (0.0, 0))
+            ops[e.name] = (t + e.self_device_time_total, n + 1)
+    top = ", ".join(f"{name} {t / 1e3:.2f} ms ({n} calls)" for name, (t, n)
+                    in sorted(ops.items(), key=lambda kv: -kv[1][0])[:8])
+    log("cornell-profile", f"chunk {k} of a warm frame: "
+        f"{len(dev) - copies} kernel launches and {copies} copies/memsets; "
+        f"unprofiled chunk wall {wall:.4f} s (profiled {profiled:.4f} s), "
+        f"device busy {busy:.4f} s -> device idle share "
+        f"{1 - busy / wall:.3f}; irradiance estimates ({len(ranges)} calls) "
+        f"{irr:.4f} s of device time ({irr / max(busy, 1e-12):.3f} of "
+        f"busy; the ranges' own device rows span {spans:.4f} s); top operators by device time: {top}; events read in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not 0.0 < busy <= profiled:
+        raise AssertionError("the chunk's device busy time lies outside "
+                             "its profiled wall")
+    return {"busy_s": busy, "wall_s": wall, "irradiance_s": irr}
 
 
 # ---------------------------------------------------------------------------
@@ -1320,11 +1774,12 @@ def check_soft_card_vs_cpu(device, w=64, h=32):
                              "texel-flip rule")
 
 
-def profile_summary(prof):
+def profile_summary(prof, rows=None):
     """(kernel launches, copies and memsets, device busy s, the top eight
-    aten operators by device time as text) of a torch.profiler run."""
+    aten operators by device time as text) of a torch.profiler run;
+    `rows` as in device_us."""
     from torch.autograd import DeviceType
-    rows = prof.key_averages()
+    rows = prof.key_averages() if rows is None else rows
     dev = [e for e in rows if e.device_type == DeviceType.CUDA]
     copies = sum(e.count for e in dev if e.key.startswith(("Memcpy",
                                                              "Memset")))
@@ -1336,7 +1791,7 @@ def profile_summary(prof):
     top = ", ".join(f"{e.key} {self_dev(e) / 1e3:.2f} ms ({e.count} calls)"
                     for e in ops)
     return (sum(e.count for e in dev) - copies, copies,
-            device_us(prof) / 1e6, top)
+            device_us(prof, rows) / 1e6, top)
 
 
 def profile_showcase(device, wall, scene=None, phase="showcase-profile"):
@@ -1553,11 +2008,35 @@ def main():
     check_train_card_vs_cpu(device)
     log("train", f"phases 19-21 took {time.perf_counter() - t0:.1f} s")
 
+    # 22-27. the stochastic camera path, the photon pass, the GI frame
+    # counted and its mesh launches against the plain versions, its
+    # equality with the plain compaction, the card against the CPU, and
+    # the command line's output
+    t0 = time.perf_counter()
+    dof_launches, dof_wall = render_dof(device, args.reps)
+    photon_pass(device)
+    ccanvas, claunches, cornell_wall, _ = render_cornell(device, args.reps)
+    cmesh = check_cornell_mesh(device)
+    for key, label, name in (
+            ("closest", "photon wave closest", "wave_first"),
+            ("closest", "photon wave closest, last", "wave_last"),
+            ("closest", "gather closest", "gather"),
+            ("shadow", "shadow", "shadow_level0")):
+        got = dict(cmesh[label])
+        mstats[key]["max_abs_err"] = max(mstats[key]["max_abs_err"],
+                                         got.pop("max_abs_err"))
+        mstats[key].update({f"cornell_{name}_{k}": v for k, v in got.items()})
+    check_cornell_equal(device, ccanvas)
+    check_cornell_card_vs_cpu(device)
+    cornell_output(ccanvas)
+    log("cornell", f"phases 22-27 took {time.perf_counter() - t0:.1f} s")
+
     kstats["compact"]["device_ms"] = compact_device_ms(
         device, W * H, b0, kstats["compact"]["ms"])
     profile_showcase(device, show_wall)
     profile_showcase(device, soft_wall, soft_textured(W, H), "soft-profile")
     profile_train_step(device, tstats["level"]["ms"])
+    profile_cornell(device)
     if args.profile:
         profile_to(args.profile, device, b0, f"{kind}; {smi}", wall,
                    mesh_wall)
@@ -1576,6 +2055,8 @@ def main():
                      "launches_soft": softlaunches[key],
                      "launches_train_fwd": tstats["level"]["fwd"][key],
                      "launches_train_bwd": tstats["level"]["bwd"][key],
+                     "launches_dof": dof_launches[key],
+                     "launches_cornell": claunches[key],
                      **kstats[key]})
     for name, key, replaces in (
             ("mesh_closest", "closest",
@@ -1587,6 +2068,8 @@ def main():
                      "launches": mlaunches[f"mesh_{key}"],
                      "launches_soft": softlaunches[f"mesh_{key}"],
                      "launches_train_fwd": 0, "launches_train_bwd": 0,
+                     "launches_dof": dof_launches[f"mesh_{key}"],
+                     "launches_cornell": claunches[f"mesh_{key}"],
                      **mstats[key]})
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

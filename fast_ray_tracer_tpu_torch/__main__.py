@@ -6,8 +6,8 @@ The port's counterpart of `python -m fast_ray_tracer_tpu`: it loads the
 reference-schema YAML scene (PyYAML), renders it on the CUDA card (or on
 the CPU with `--device cpu`; nothing falls back), and writes STEM.ppm and
 STEM.png (STEM defaults to the scene's `output.file`). Scenes that need
-random numbers (jittered cameras or lights, shaped apertures) or photon
-GI raise NotImplementedError, as render_scene does.
+random numbers (jittered cameras or lights, shaped apertures, photon GI)
+draw them from `--seed` (default 0): the same seed writes the same files.
 
 `main(argv)` parses the arguments and loads the scene; `render_to_files`
 is the rest, for a caller that holds a SceneDesc.
@@ -35,13 +35,15 @@ def render_to_files(scene: SceneDesc, out: str, dtype=None,
                     chunk_pixels: Optional[int] = None, device="cuda",
                     quiet: bool = False, ppm: bool = True, png: bool = True,
                     stats: Optional[dict] = None,
-                    checkpoint: Optional[str] = None) -> np.ndarray:
+                    checkpoint: Optional[str] = None,
+                    seed: Optional[int] = None) -> np.ndarray:
     """Render `scene` on `device` and write `<out>.ppm` and `<out>.png`
     (each unless switched off); returns the canvas. `dtype` defaults to
     float32 on the card and float64 on the CPU; `chunk_pixels` to the
     whole frame (render_scene still cuts chunks to its shadow-ray cap).
     `stats`, if a dict, receives render_scene's bucket statistics;
-    `checkpoint` is render_scene's snapshot path (resume after a kill)."""
+    `checkpoint` is render_scene's snapshot path (resume after a kill);
+    `seed` render_scene's seed."""
     device = torch.device(device)
     if dtype is None:
         dtype = torch.float64 if device.type == "cpu" else torch.float32
@@ -52,7 +54,7 @@ def render_to_files(scene: SceneDesc, out: str, dtype=None,
         canvas = render_scene(scene, dtype=dtype,
                               chunk_pixels=chunk_pixels or W * H,
                               device=device, stats=stats,
-                              checkpoint_path=checkpoint)
+                              checkpoint_path=checkpoint, seed=seed)
     wall = timer.total()
     if not quiet:
         rays = rays_per_second(W * H, cam.usteps * cam.vsteps, 2, wall)
@@ -96,6 +98,9 @@ def main(argv=None, stats: Optional[dict] = None) -> int:
     ap.add_argument("--checkpoint", default=None, metavar="PATH",
                     help="snapshot path: resumable render progress (a "
                     "killed render restarts where it stopped)")
+    ap.add_argument("--seed", type=int, default=None,
+                    help="seed of the random numbers of a stochastic scene "
+                    "(default 0; a deterministic scene draws none)")
     ap.add_argument("--quiet", action="store_true",
                     help="print nothing but errors")
     ap.add_argument("--ppm-only", action="store_true")
@@ -116,7 +121,7 @@ def main(argv=None, stats: Optional[dict] = None) -> int:
                     dtype=dtype, chunk_pixels=args.chunk, device=args.device,
                     quiet=args.quiet, ppm=not args.png_only,
                     png=not args.ppm_only, stats=stats,
-                    checkpoint=args.checkpoint)
+                    checkpoint=args.checkpoint, seed=args.seed)
     return 0
 
 

@@ -1,16 +1,23 @@
 """Color-space conversions on the host, float64 numpy over (..., 3) arrays.
 
 The port's copy of the JAX package's colors.py, for the input decode of
-scene colors and textures: the reference's formulas (src/color/{rgb,srgb,
+scene colors and textures and for the CIE-Lab lightness that apportions
+photons among lights: the reference's formulas (src/color/{rgb,srgb,
 xyz,lab}.c) with the same matrices and thresholds. Every conversion runs
-in float64 whatever the frame's dtype (the JAX package decodes LAB in
-float32 whenever x64 is off). HSL and XYY decode to themselves, as the
+in float64 whatever the frame's dtype (the JAX package decodes LAB, and
+computes the lightness, in float32 whenever x64 is off). HSL and XYY decode to themselves, as the
 reference's empty `hsl_to_rgb` stub and its copying `xyy_to_rgb` do.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+RGB_TO_XYZ = np.array([
+    [0.412453, 0.357580, 0.180423],
+    [0.212671, 0.715160, 0.072169],
+    [0.019334, 0.119193, 0.950227],
+])
 
 XYZ_TO_RGB = np.array([
     [3.240479, -1.537150, -0.498535],
@@ -44,8 +51,27 @@ def rgb_to_srgb(rgb) -> np.ndarray:
                         - 0.055)
 
 
+def rgb_to_xyz(rgb) -> np.ndarray:
+    return _f64(rgb) @ RGB_TO_XYZ.T
+
+
 def xyz_to_rgb(xyz) -> np.ndarray:
     return _f64(xyz) @ XYZ_TO_RGB.T
+
+
+def xyz_to_lab(xyz) -> np.ndarray:
+    """src/color/srgb.c xyz_to_lab (the same thresholds)."""
+    n = _f64(xyz) / TRISTIMULUS
+    f = np.where(n > 0.008856, np.cbrt(np.abs(n)), 7.787 * n + 16.0 / 116.0)
+    ny = n[..., 1]
+    lum = np.where(ny > 0.008856, 116.0 * np.cbrt(np.abs(ny)) - 16.0,
+                   903.3 * ny)
+    return np.stack([lum, 500.0 * (f[..., 0] - f[..., 1]),
+                     200.0 * (f[..., 1] - f[..., 2])], axis=-1)
+
+
+def rgb_to_lab(rgb) -> np.ndarray:
+    return xyz_to_lab(rgb_to_xyz(rgb))
 
 
 def lab_to_xyz(lab) -> np.ndarray:

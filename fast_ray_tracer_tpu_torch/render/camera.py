@@ -7,9 +7,11 @@ jitter maps to world_x = half_width - (px + jx) * pixel_size (note the
 x flip), the ray origin is a point on the aperture disk scaled by
 aperture.size, both mapped through the camera's inverse view transform.
 
-This slice has the point aperture only (and the hexagonal, pentagonal and
-octagonal enum values, which the reference also treats as a point);
-the shaped, sampled apertures come with the stochastic slice.
+Shaped apertures (camera.c:11-90) are rejection samplers over the unit
+square, bounded at APERTURE_TRIES tries whose uniforms the caller passes
+(`draw_aperture` draws them from an RNG node); point apertures are the
+deterministic center. Hexagonal, pentagonal and octagonal enum values
+fall back to the point, like the C switch (camera.c:193-204).
 """
 
 from __future__ import annotations
@@ -79,12 +81,58 @@ def build_camera(cam: CameraDesc, dtype=torch.float32,
         aperture_params=cam.aperture.params)
 
 
-def sample_aperture(rt: CameraRT, n: int, dtype, device):
-    """(n, 2) aperture offsets: the center, for the point-like apertures."""
-    if rt.aperture_kind not in POINT_LIKE_APERTURES:
-        raise NotImplementedError(
-            f"{rt.aperture_kind} needs random numbers; not ported yet")
-    return torch.zeros((n, 2), dtype=dtype, device=device)
+# rejection-sampler tries per ray: the first accepted try wins, the last
+# one when none is
+APERTURE_TRIES = 32
+
+
+def sample_aperture(rt: CameraRT, n: int, dtype, device, xs=None):
+    """(n, 2) aperture offsets, about [-0.5, 0.5] before the size scaling:
+    the center for the point-like apertures; else from the uniforms `xs`,
+    (n, 2) for the square aperture and (APERTURE_TRIES, n, 2) for the
+    rejection samplers (circular, doughnut, cross, diamond)."""
+    kind = rt.aperture_kind
+    if kind in POINT_LIKE_APERTURES:
+        return torch.zeros((n, 2), dtype=dtype, device=device)
+    if xs is None:
+        raise ValueError(f"{kind} needs its uniforms (draw_aperture)")
+    if kind == "SQUARE_APERTURE":
+        return xs - 0.5
+    u = 2.0 * xs[..., 0] - 1.0
+    v = 2.0 * xs[..., 1] - 1.0
+    p = rt.aperture_params
+    if kind == "CIRCULAR_APERTURE":
+        ok = u * u + v * v <= p[0]
+    elif kind == "DOUGHNUT_APERTURE":
+        mag = u * u + v * v
+        ok = (mag <= p[0]) & (mag >= p[1])
+    elif kind == "CROSS_APERTURE":
+        x1, x2, y1, y2 = p
+        ok = ((u > x1) & (u <= x2)) | ((v > y1) & (v <= y2))
+    elif kind == "DIAMOND_APERTURE":
+        b1, b2, b3, b4 = p
+        left = (u <= 0) & (-u + b1 <= v) & (v < u + b2)
+        # the right half tests the raw uniform, not u (a reference quirk)
+        right = (u > 0) & (xs[..., 0] >= 0) & (u + b3 <= v) & (v < -u + b4)
+        ok = left | right
+    else:
+        raise ValueError(f"unknown aperture {kind}")
+    # the first accepted try per ray (argmax takes the first maximum); the
+    # last try when none is accepted
+    first = ok.to(torch.uint8).argmax(0)
+    idx = torch.where(ok.any(0), first, APERTURE_TRIES - 1)
+    return xs.gather(0, idx[None, :, None].expand(1, n, 2))[0] - 0.5
+
+
+def draw_aperture(rt: CameraRT, n: int, rng, dtype):
+    """sample_aperture's uniforms for n rays from an RNG node (None for the
+    point-like apertures, which draw nothing)."""
+    kind = rt.aperture_kind
+    if kind in POINT_LIKE_APERTURES:
+        return None
+    if kind == "SQUARE_APERTURE":
+        return rng.uniform((n, 2), dtype)
+    return rng.uniform((APERTURE_TRIES, n, 2), dtype)
 
 
 def rays_for_pixels(rt: CameraRT, px, py, jitter_uv, aperture_xy):

@@ -12,6 +12,14 @@ The stream compaction of `trace_bucketed` and the closest-hit and shadow
 queries of clustered meshes run in hand-written CUDA kernels on the card
 (ops/compact.py, ops/mesh.py); on the CPU they take their plain torch
 versions.
+
+Stochastic scenes pass an RNG node (sampling/rng.py) down the trace, and
+each draw sits where the JAX package draws from its key: level `lvl`
+folds in lvl, and shade_direct splits three ways per light (the shadow
+test's and the shading's sample tables, then the rest), before the GI
+hook (render/photon.py) draws its final-gather directions. The draws of
+a level are indexed by its rows, so the bucketed and the unrolled trace
+draw alike only where their levels hold the same rows.
 """
 
 from __future__ import annotations
@@ -26,7 +34,7 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
 )
 
-from fast_ray_tracer_tpu_torch.constants import EPSILON
+from fast_ray_tracer_tpu_torch.constants import EPSILON, SQRT3
 from fast_ray_tracer_tpu_torch.ops import compact, mesh
 from fast_ray_tracer_tpu_torch.ops.intersect import (
     Hit, apply_csg_filter, closest_hit, containers_n1_n2, csg_device_tables,
@@ -38,6 +46,9 @@ from fast_ray_tracer_tpu_torch.ops.patterns import (
 )
 from fast_ray_tracer_tpu_torch.ops.vec import dot3, normalize
 from fast_ray_tracer_tpu_torch.render.normals import normal_at
+from fast_ray_tracer_tpu_torch.sampling.cmj import (
+    cmj_points_batched, draw_cmj_batched,
+)
 from fast_ray_tracer_tpu_torch.scene import ir as IR
 from fast_ray_tracer_tpu_torch.scene.ir import SceneIR
 from fast_ray_tracer_tpu_torch.scene.model import ConfigDesc
@@ -85,6 +96,9 @@ class RenderStatics(NamedTuple):
     mesh: Optional[mesh.MeshTables]   # clustered mesh (use_clusters only)
     csg_tables: tuple            # per csg tree: (slots, filter program)
     cfg: ConfigDesc
+    # the photon-map GI term (render/photon.make_gi_hook), attached by
+    # render_scene after the photon pass
+    gi_hook: Optional[object] = None
 
 
 def build_statics(ir: SceneIR, cfg: ConfigDesc) -> RenderStatics:
@@ -114,17 +128,23 @@ def build_statics(ir: SceneIR, cfg: ConfigDesc) -> RenderStatics:
         cfg=cfg)
 
 
-def closest_query(ir: SceneIR, rt: RenderStatics, orig, dirs):
+def closest_query(ir: SceneIR, rt: RenderStatics, orig, dirs,
+                  shadow_filter: bool = False):
     """Nearest positive hit over the analytic prims and the mesh.
-    Returns (Hit, t_cand) — t_cand feeds the containers walk."""
+    Returns (Hit, t_cand) — t_cand feeds the containers walk.
+    shadow_filter=True takes hits on casts_shadow materials only (the
+    reference's `hit(xs, true)`, which the photon pass uses,
+    photon_tracer.c:190): the slot filter, and the mesh query's keep."""
     meta = ir.meta
     t_cand = intersect_candidates(ir, orig, dirs)
     if meta.has_csg:
         t_cand = apply_csg_filter(t_cand, rt.csg_tables)
-    hit = closest_hit(t_cand, rt.slot_prim)
+    hit = closest_hit(t_cand, rt.slot_prim,
+                      mask=rt.slot_shadow if shadow_filter else None)
     if not meta.use_clusters:
         return hit, t_cand
-    t_m, idx_m = mesh.closest(rt.mesh, orig, dirs)
+    keep = ir.mat_casts_shadow[ir.tri_material_id] if shadow_filter else None
+    t_m, idx_m = mesh.closest(rt.mesh, orig, dirs, keep)
     use_m = t_m < hit.t
     return Hit(valid=hit.valid | torch.isfinite(t_m),
                t=torch.where(use_m, t_m, hit.t),
@@ -159,10 +179,10 @@ class Comps(NamedTuple):
     ctx: ShapeCtx
 
 
-def prepare_computations(ir: SceneIR, rt: RenderStatics, orig,
-                         dirs) -> Comps:
+def prepare_computations(ir: SceneIR, rt: RenderStatics, orig, dirs,
+                         shadow_filter: bool = False) -> Comps:
     meta = ir.meta
-    hit, t_cand = closest_query(ir, rt, orig, dirs)
+    hit, t_cand = closest_query(ir, rt, orig, dirs, shadow_filter)
     t = torch.where(hit.valid, hit.t, 1.0)
     prim = hit.prim
     p = orig + t[:, None] * dirs
@@ -272,15 +292,54 @@ def is_shadowed(ir: SceneIR, rt: RenderStatics, light_pts, p, active):
     return (t < df).reshape(R, S)
 
 
-def _light_sample_points(ir: SceneIR, li: int, R: int):
-    """Surface sample points of light li: (R, S, 3), the compile-time
-    cache broadcast to every lane (point and hemisphere lights have one,
-    their position; unjittered area and circle lights their S CMJ
-    points)."""
-    if ir.meta.light_info[li][3]:
-        raise NotImplementedError("jittered lights are not ported yet")
-    num = ir.meta.light_info[li][4]
-    return ir.light_points[li, :num][None].expand(R, num, 3)
+def _light_sample_points(ir: SceneIR, li: int, R: int, rng=None):
+    """Surface sample points of light li: (R, S, 3). Without `rng`, or
+    for point, hemisphere and unjittered lights, the compile-time cache
+    broadcast to every lane (point and hemisphere lights have one point,
+    their position; area and circle lights their S CMJ points). A
+    jittered area or circle light draws a fresh CMJ table per lane from
+    `rng` (the reference picks one of 65536 pre-jittered tables per
+    query, light.c:193-198 — statistically the same)."""
+    typ, usteps, vsteps, jitter, num = ir.meta.light_info[li]
+    if not jitter or rng is None or typ in (IR.LIGHT_POINT,
+                                            IR.LIGHT_HEMISPHERE):
+        return ir.light_points[li, :num][None].expand(R, num, 3)
+    tables = cmj_points_batched(
+        *draw_cmj_batched(rng, R, usteps, vsteps, ir.light_pos.dtype),
+        usteps, vsteps)
+    return jittered_light_points(ir, li, tables)
+
+
+def jittered_light_points(ir: SceneIR, li: int, tables):
+    """Light li's sample points (R, S, 3) from CMJ tables (R, S, 2): the
+    area light's corner + u steps * uvec + v steps * vvec, the circle
+    light's uniform disc in its frame (sampler.c:116-139)."""
+    typ, usteps, vsteps = ir.meta.light_info[li][:3]
+    pos = ir.light_pos[li][None, None]
+    if typ == IR.LIGHT_AREA:
+        u = tables[..., 0] * usteps
+        v = tables[..., 1] * vsteps
+        return (pos + u[..., None] * ir.light_uvec[li][None, None]
+                + v[..., None] * ir.light_vvec[li][None, None])
+    theta = 2.0 * math.pi * tables[..., 0]
+    r = ir.light_radius[li] * torch.sqrt(tables[..., 1])
+    nt, nb = coordinate_frame(ir.light_normal[li][None])
+    return (pos + (r * torch.cos(theta))[..., None] * nb[None]
+            + (r * torch.sin(theta))[..., None] * nt[None])
+
+
+def coordinate_frame(n):
+    """create_coordinate_system (sampler.c:66-85) per row of n (R, 3):
+    (nt, nb), nt the negated normalized perpendicular, nb = n x nt."""
+    x, y, z = n[:, 0], n[:, 1], n[:, 2]
+    zero = torch.zeros_like(x)
+
+    def unit(v, a, b):
+        return v / torch.sqrt((a * a + b * b).clamp(min=1e-30))[:, None]
+    use_x = (x.abs() > y.abs())[:, None]
+    nt = -torch.where(use_x, unit(torch.stack([z, zero, -x], -1), x, z),
+                      unit(torch.stack([zero, -z, y], -1), y, z))
+    return nt, torch.linalg.cross(n, nt)
 
 
 def lighting_microfacet(ir: SceneIR, rt: RenderStatics, comps: Comps,
@@ -348,28 +407,50 @@ def lighting_microfacet(ir: SceneIR, rt: RenderStatics, comps: Comps,
     return res
 
 
-def intensity_at(ir: SceneIR, rt: RenderStatics, li: int, p, active):
+def intensity_at(ir: SceneIR, rt: RenderStatics, li: int, p, active,
+                 rng=None):
     """The unshadowed fraction of light li's samples seen from p (R, 3)
-    (light.c:229-251), and the sample points."""
-    pts = _light_sample_points(ir, li, p.shape[0])
+    (light.c:229-251), and the sample points (drawn from `rng` for a
+    jittered light)."""
+    pts = _light_sample_points(ir, li, p.shape[0], rng)
     shadowed = is_shadowed(ir, rt, pts, p, active)
     return (1.0 - shadowed.to(p.dtype)).mean(-1), pts
 
 
-def shade_direct(ir: SceneIR, rt: RenderStatics, comps: Comps) -> Triple:
+def shade_direct(ir: SceneIR, rt: RenderStatics, comps: Comps,
+                 rng=None) -> Triple:
     """The non-recursive part of shade_hit (renderer.c:689-770): direct
-    lighting per light. Point and hemisphere lights cast one shadow ray
-    per lane; area and circle lights cast one to each of their S sample
-    points, an (R * S)-ray shadow query, and light the lane from every
-    sample point."""
+    lighting per light, then the photon-map GI terms. Point and
+    hemisphere lights cast one shadow ray per lane; area and circle
+    lights cast one to each of their S sample points, an (R * S)-ray
+    shadow query, and light the lane from every sample point. A jittered
+    light draws two independent tables per lane, one for the shadow test
+    and one for the shading (k1, k2 of the JAX package's split; the
+    reference draws afresh for each too)."""
     R = comps.p.shape[0]
     surface = Triple.zeros(R, comps.p.dtype, comps.p.device)
     if rt.cfg.include_direct:
         for li in range(ir.meta.n_lights):
+            k1 = k2 = None
+            if rng is not None:
+                rng, k1, k2 = rng.split(3)
             intensity, pts = intensity_at(ir, rt, li, comps.over_point,
-                                          comps.valid)
+                                          comps.valid, k1)
+            if k2 is not None and ir.meta.light_info[li][3]:
+                pts = _light_sample_points(ir, li, R, k2)
             surface = surface + lighting_microfacet(
                 ir, rt, comps, li, pts, intensity)
+    if rt.gi_hook is not None:
+        a = surface.a + rt.gi_hook(ir, rt, comps, rng)
+        # the L1 clamp of the ambient channel (renderer.c:765-769); the GI
+        # block, clamp included, is gated on over_Kd > 0 (renderer.c:728):
+        # black-diffuse lanes keep an unclamped ambient
+        l1 = a.sum(-1, keepdim=True)
+        over = l1 > SQRT3
+        clamped = torch.where(over, a * SQRT3 / torch.where(over, l1, 1.0),
+                              a)
+        gate = (comps.over_Kd > 0.0).any(-1, keepdim=True)
+        surface = Triple(torch.where(gate, clamped, a), surface.d, surface.s)
     return surface
 
 
@@ -461,9 +542,9 @@ def schlick(comps: Comps):
 # wavefront traces
 # ---------------------------------------------------------------------------
 
-def _level(ir, rt, orig, dirs):
+def _level(ir, rt, orig, dirs, rng=None):
     comps = prepare_computations(ir, rt, orig, dirs)
-    return comps, shade_direct(ir, rt, comps)
+    return comps, shade_direct(ir, rt, comps, rng)
 
 
 # matrix-product operators: what the "dots" remat mode keeps saved
@@ -487,7 +568,8 @@ def _checkpointed(fn, **kw):
 
 
 def _make_level_fn(remat):
-    """(ir, rt, o, d) -> (Comps, direct Triple), optionally checkpointed:
+    """(ir, rt, o, d, rng) -> (Comps, direct Triple), optionally
+    checkpointed (a recomputed level draws the same numbers again):
     under autograd each wavefront level's big intermediates (candidate t
     tables, shadow-ray batches, pattern evaluations) are recomputed in the
     backward instead of stored, so activation memory grows with the lanes
@@ -519,9 +601,9 @@ def _make_level_fn(remat):
         prep = _checkpointed(prepare_computations)
         shade = _checkpointed(shade_direct)
 
-        def _level_nested(ir, rt, orig, dirs):
+        def _level_nested(ir, rt, orig, dirs, rng=None):
             comps = prep(ir, rt, orig, dirs)
-            return comps, shade(ir, rt, comps)
+            return comps, shade(ir, rt, comps, rng)
         return _checkpointed(_level_nested)
     if remat == "dots":
         return _checkpointed(_level, context_fn=partial(
@@ -551,18 +633,20 @@ def _split_children(total: Triple, n: int, want_refl: bool,
 
 
 def trace(ir: SceneIR, rt: RenderStatics, orig, dirs, depth: int,
-          remat=False) -> Triple:
+          remat=False, rng=None) -> Triple:
     """Wavefront Whitted trace: the reference's branching recursion
     (reflect + refract children, depth `remaining`) evaluated one level at
     a time over concatenated child batches — the exact oracle, 2^depth
     lanes at the last level, same arithmetic per lane. `remat` checkpoints
-    each level for the backward (`_make_level_fn`)."""
+    each level for the backward (`_make_level_fn`); `rng` is the trace's
+    RNG node, or None for a scene that draws nothing."""
     want_refl, want_refr = _wants(ir, rt, depth)
     level_fn = _make_level_fn(remat)
     levels = []
     cur_o, cur_d = orig, dirs
     for lvl in range(depth + 1):
-        comps, direct = level_fn(ir, rt, cur_o, cur_d)
+        comps, direct = level_fn(ir, rt, cur_o, cur_d,
+                                 None if rng is None else rng.fold(lvl))
         levels.append((comps, direct))
         if lvl == depth or not (want_refl or want_refr):
             break
@@ -623,7 +707,7 @@ def _compactors(compaction: str):
 
 
 def trace_bucketed(ir: SceneIR, rt: RenderStatics, orig, dirs, depth: int,
-                   buckets, compaction: str = "auto", remat=False):
+                   buckets, compaction: str = "auto", remat=False, rng=None):
     """Wavefront trace with device-side static-bucket compaction.
 
     Each level's live children are compacted, in order, into a bucket of
@@ -644,20 +728,23 @@ def trace_bucketed(ir: SceneIR, rt: RenderStatics, orig, dirs, depth: int,
     graph), so a material whose refl or Tf is exactly zero gets
     subgradient 0 through the subtree it prunes; any nonzero channel gets
     the exact gradient. `remat` checkpoints each level (`_make_level_fn`);
-    the compactions stay outside the checkpoints."""
+    the compactions stay outside the checkpoints. `rng` as in `trace`,
+    except that a trace with no children draws from `rng` itself (the
+    JAX package's quirk: its one level takes the key unfolded)."""
     compact_fn, expand_fn = _compactors(compaction)
     want_refl, want_refr = _wants(ir, rt, depth)
     level_fn = _make_level_fn(remat)
     overflow = torch.zeros((), dtype=torch.bool, device=orig.device)
     if not (want_refl or want_refr):
-        comps, direct = level_fn(ir, rt, orig, dirs)
+        comps, direct = level_fn(ir, rt, orig, dirs, rng)
         return combine_specular(ir, rt, comps, direct, None,
                                 None).mask(comps.valid), overflow
 
     levels = []
     cur_o, cur_d = orig, dirs
     for lvl in range(depth + 1):
-        comps, direct = level_fn(ir, rt, cur_o, cur_d)
+        comps, direct = level_fn(ir, rt, cur_o, cur_d,
+                                 None if rng is None else rng.fold(lvl))
         entry = {"comps": comps, "direct": direct, "act": None, "bucket": 0}
         levels.append(entry)
         if lvl == depth:

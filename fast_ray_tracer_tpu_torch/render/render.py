@@ -13,6 +13,14 @@ exact unrolled trace. Each chunk costs one host sync, where its overflow
 flag and its colors come back. With `checkpoint_path` the canvas is
 snapshotted every few chunks, and a render resumes from its snapshot.
 
+Scenes that need random numbers (camera jitter, a shaped aperture, a
+jittered light, photon GI) draw them from one RNG tree rooted at the
+render's `seed` (sampling/rng.py): chunk c folds in c; its camera draws
+come from that node (split two ways under camera jitter), its trace from
+fold(1), the photon pass from the root's fold(12345) — the JAX package's
+key tree. Photon GI runs a photon pass before the chunk loop
+(render/photon.py) and hangs its estimate on RenderStatics.gi_hook.
+
 `pixel_colors` is the differentiable core that the chunk loop and the
 training step (parallel/train.py) share: rays for pixel ids, the trace,
 the per-pixel average and (A + D + S) / 3, plus the trace's overflow
@@ -22,6 +30,7 @@ flag.
 from __future__ import annotations
 
 import math
+import time
 from typing import Optional
 
 import numpy as np
@@ -30,23 +39,30 @@ import torch
 from fast_ray_tracer_tpu_torch.parallel.checkpoint import (
     load_render_progress, save_render_progress,
 )
+from fast_ray_tracer_tpu_torch.render import photon
 from fast_ray_tracer_tpu_torch.render.camera import (
-    build_camera, rays_for_pixels, sample_aperture,
+    POINT_LIKE_APERTURES, build_camera, draw_aperture, rays_for_pixels,
+    sample_aperture,
 )
 from fast_ray_tracer_tpu_torch.render.integrator import (
     build_statics, spawn_counts, trace, trace_bucketed,
 )
-from fast_ray_tracer_tpu_torch.sampling.cmj import cmj_points_static
+from fast_ray_tracer_tpu_torch.sampling.cmj import (
+    cmj_points_batched, cmj_points_static, draw_cmj_batched,
+)
+from fast_ray_tracer_tpu_torch.sampling.rng import RNG
 from fast_ray_tracer_tpu_torch.scene.compile import compile_scene
 from fast_ray_tracer_tpu_torch.scene.ir import SceneIR, default_device
 from fast_ray_tracer_tpu_torch.scene.model import SceneDesc
 
 
-# the largest (chunk rays) x (light samples) product of a chunk: a
-# soft_textured frame of one chunk at this cap peaked at 7.767 GiB of device
-# memory on an NVIDIA H100 80GB HBM3 (700.00 W); chip_smoke.py holds that
-# peak under its budget (PERF.md, section 5)
+# the largest (chunk rays) x (light samples + final-gather rays) product
+# of a chunk: a soft_textured frame of one chunk at this cap peaked at
+# 7.767 GiB of device memory on an NVIDIA H100 80GB HBM3 (700.00 W);
+# chip_smoke.py holds that peak under its budget (PERF.md, section 5)
 SHADOW_RAYS_PER_CHUNK = 1 << 25
+# the photon pass's root: the render tree's fold(PHOTON_FOLD)
+PHOTON_FOLD = 12345
 
 
 def quantize_buckets(counts, margin):
@@ -56,14 +72,55 @@ def quantize_buckets(counts, margin):
                  for c in counts)
 
 
-def needs_rng(ir: SceneIR) -> bool:
-    """Whether the scene's lights need random numbers (jittered lights)."""
-    return any(info[3] for info in ir.meta.light_info)
+def gi_gates(cfg):
+    """(use_gi, shade_gi): photons are traced when any of the three GI
+    flags is set (the generated main, yaml_parser.py:201), but the GI
+    terms are applied at shading only under include_global or
+    visualize_photon_map (setup_config, renderer.c:62) — a scene setting
+    only visualize-soft-indirect traces photons and never reads them (a
+    reference quirk, kept)."""
+    use_gi = (cfg.include_global or cfg.visualize_photon_map
+              or cfg.visualize_soft_indirect)
+    return use_gi, cfg.include_global or cfg.visualize_photon_map
+
+
+def needs_rng(ir: SceneIR, cam, cfg) -> bool:
+    """Whether a frame draws random numbers (render.py:216-224 of the JAX
+    package): camera jitter, a non-point aperture, a jittered light, or
+    photon GI."""
+    return bool(cam.aperture.jitter
+                or cam.aperture.kind not in POINT_LIKE_APERTURES
+                or any(info[3] for info in ir.meta.light_info)
+                or (cfg.photon_count > 0 and gi_gates(cfg)[0]))
+
+
+def primary_samples(cam, cam_rt, det_table, px, py, ck):
+    """A chunk's per-sample pixel ids, subpixel offsets and aperture
+    offsets (JAX render.py's chunk_rays): with camera jitter a fresh CMJ
+    table per pixel from ck.split(2)[0] and the aperture's draws from the
+    second child; else the deterministic table `det_table` and the
+    aperture's draws from `ck` itself. `ck` is the chunk's RNG node (None:
+    nothing drawn)."""
+    n = px.shape[0]
+    S = cam.usteps * cam.vsteps
+    dtype = det_table.dtype
+    ap_rng = ck
+    if ck is None or not cam.aperture.jitter:
+        uv = det_table[None].expand(n, S, 2).reshape(n * S, 2)
+    else:
+        kt, ap_rng = ck.split(2)
+        uv = cmj_points_batched(*draw_cmj_batched(
+            kt, n, cam.usteps, cam.vsteps, dtype), cam.usteps,
+            cam.vsteps).reshape(n * S, 2)
+    xs = None if ap_rng is None else draw_aperture(cam_rt, n * S, ap_rng,
+                                                   dtype)
+    ap = sample_aperture(cam_rt, n * S, dtype, det_table.device, xs)
+    return px.repeat_interleave(S), py.repeat_interleave(S), uv, ap
 
 
 def pixel_colors(ir: SceneIR, rt, cam_rt, px, py, uv, ap, n_samples: int,
                  path_length: int, remat=False, buckets=None,
-                 compaction: str = "auto"):
+                 compaction: str = "auto", rng=None):
     """Pixel ids (with subpixel uv and aperture offsets), each repeated
     n_samples times in a row -> ((n_pixels, 3) linear colors, overflow).
 
@@ -75,27 +132,31 @@ def pixel_colors(ir: SceneIR, rt, cam_rt, px, py, uv, ap, n_samples: int,
     and rays were dropped (always False unrolled). Nothing here syncs or
     raises on it; callers check it. Under autograd the bucketed branch
     keeps the spawn value gates on (see trace_bucketed). `remat`
-    checkpoints each wavefront level (integrator._make_level_fn).
+    checkpoints each wavefront level (integrator._make_level_fn). `rng`
+    is the trace's RNG node (None for a scene that draws nothing).
 
-    Raises NotImplementedError for jittered lights (they need random
-    numbers) and for clustered meshes when a float table requires grad:
-    the mesh kernels have no backward, so the card would drop gradients
-    that the CPU's plain mesh path computes."""
-    if needs_rng(ir):
-        raise NotImplementedError("scenes that need random numbers "
-                                  "(jittered lights) are not ported yet")
-    if ir.meta.use_clusters and torch.is_grad_enabled() and any(
-            t.requires_grad for t in ir.float_tables().values()):
+    Raises NotImplementedError under autograd (a float table requiring
+    grad) for clustered meshes — the mesh kernels have no backward, so
+    the card would drop gradients that the CPU's plain mesh path
+    computes — and for photon GI, whose gradients (live photon powers)
+    are the port's next slice."""
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in ir.float_tables().values())
+    if grad and ir.meta.use_clusters:
         raise NotImplementedError("gradients through clustered meshes are "
                                   "not ported yet")
+    if grad and rt.gi_hook is not None:
+        raise NotImplementedError(
+            "gradients through photon-mapped GI (live photon powers) are "
+            "the next slice of the port")
     orig, dirs = rays_for_pixels(cam_rt, px, py, uv, ap)
     if buckets is None:
-        triple = trace(ir, rt, orig, dirs, path_length, remat=remat)
+        triple = trace(ir, rt, orig, dirs, path_length, remat=remat, rng=rng)
         overflow = torch.zeros((), dtype=torch.bool, device=orig.device)
     else:
         triple, overflow = trace_bucketed(
             ir, rt, orig, dirs, path_length, list(buckets),
-            compaction=compaction, remat=remat)
+            compaction=compaction, remat=remat, rng=rng)
     n = px.shape[0] // n_samples
     a = triple.a.reshape(n, n_samples, 3).mean(1)
     d = triple.d.reshape(n, n_samples, 3).mean(1)
@@ -108,64 +169,81 @@ def render_scene(scene: SceneDesc, dtype=torch.float32,
                  compaction: str = "auto",
                  stats: Optional[dict] = None,
                  checkpoint_path: Optional[str] = None,
-                 checkpoint_every: int = 8) -> np.ndarray:
+                 checkpoint_every: int = 8,
+                 seed: Optional[int] = None) -> np.ndarray:
     """Render a scene to an (H, W, 3) float64 numpy canvas (linear,
     pre-encode), on `device` (default: the CUDA card; the CPU only when
     asked for).
 
-    Only deterministic scenes are ported: jittered cameras or lights,
-    shaped apertures and photon GI raise NotImplementedError. Chunks are
-    cut to SHADOW_RAYS_PER_CHUNK rays times the scene's most light
-    samples.
+    A scene that needs random numbers (`needs_rng`) draws them from the
+    RNG tree of `seed` (0 when None): the same seed renders the same frame
+    bit for bit. A deterministic scene draws nothing and ignores the
+    seed. Photon GI traces its photon maps first, in the same call.
+    Chunks are cut to SHADOW_RAYS_PER_CHUNK rays times the scene's most
+    light samples plus its final-gather rays per lane.
     `compaction="plain"` forces the plain torch compaction (for tests that
-    hold the kernels against it). If `stats` is a dict, it receives the
-    calibrated `buckets` and the counts of chunks that needed a bucket
-    escalation (`escalations`) or the exact fallback (`exact_chunks`).
+    hold the kernels against it); it changes no draw. If `stats` is a
+    dict, it receives the calibrated `buckets`, the counts of chunks that
+    needed a bucket escalation (`escalations`) or the exact fallback
+    (`exact_chunks`), and for GI the photon pass's `photon_seconds` and
+    per-map statistics (`photons`, see photon.trace_photons).
     With `checkpoint_path`, the canvas and the count of finished chunks
     are written there every `checkpoint_every` chunks and after the last
     one; a render that finds a snapshot of the same chunking there
     resumes after its last finished chunk."""
     cfg = scene.config
     cam = scene.camera
-    if cfg.photon_count > 0 and (cfg.include_global or cfg.visualize_photon_map
-                                 or cfg.visualize_soft_indirect):
-        raise NotImplementedError("photon-mapped GI is not ported yet")
     device = default_device(device)
     ir = compile_scene(scene, dtype=dtype, device=device)
-    if cam.aperture.jitter or needs_rng(ir):
-        raise NotImplementedError("scenes that need random numbers (jittered "
-                                  "cameras or lights) are not ported yet")
     cam_rt = build_camera(cam, dtype=dtype, device=device)
     rt = build_statics(ir, cfg)
+    if stats is None:
+        stats = {}
+    stats.update(buckets=None, escalations=0, exact_chunks=0)
+    root = RNG(0 if seed is None else seed, device) \
+        if needs_rng(ir, cam, cfg) else None
+
+    use_gi, shade_gi = gi_gates(cfg)
+    gather = 0
+    if cfg.photon_count > 0 and use_gi:
+        # maps populated as the generated main does (yaml_parser.py:201-216):
+        # caustic iff include_caustics, global iff include_final_gather
+        t0 = time.perf_counter()
+        pstats = {}
+        maps = photon.trace_photons(
+            ir, rt, root.fold(PHOTON_FOLD), dtype,
+            caustic=cfg.include_caustics, global_=cfg.include_final_gather,
+            stats=pstats)
+        stats.update(photon_seconds=time.perf_counter() - t0,
+                     photons=pstats)
+        if shade_gi:
+            rt = rt._replace(gi_hook=photon.make_gi_hook(maps, cfg))
+            if cfg.include_final_gather and maps.get(photon.GLOBAL):
+                gather = cfg.gi_usteps * cfg.gi_vsteps
 
     W, H = cam.width, cam.height
     S = cam.usteps * cam.vsteps
     chunk_pixels = min(chunk_pixels, max(
-        256, SHADOW_RAYS_PER_CHUNK // (S * ir.meta.max_light_samples)))
+        256, SHADOW_RAYS_PER_CHUNK
+        // (S * (ir.meta.max_light_samples + gather))))
     path_length = cfg.di_path_length
     det_table = torch.as_tensor(cmj_points_static(cam.usteps, cam.vsteps)) \
         .to(device=device, dtype=dtype)
     use_bucketed = ir.meta.has_reflective or ir.meta.has_refractive
-    if stats is None:
-        stats = {}
-    stats.update(buckets=None, escalations=0, exact_chunks=0)
 
-    def sample_args(px, py):
-        n = px.shape[0]
-        uv = det_table[None].expand(n, S, 2).reshape(n * S, 2)
-        ap = sample_aperture(cam_rt, n * S, dtype, device)
-        return px.repeat_interleave(S), py.repeat_interleave(S), uv, ap
-
-    def probe_counts(px, py):
-        counts = spawn_counts(ir, rt, *rays_for_pixels(cam_rt,
-                                                       *sample_args(px, py)),
-                              path_length, compaction=compaction)
+    def probe_counts(px, py, ck):
+        counts = spawn_counts(ir, rt, *rays_for_pixels(
+            cam_rt, *primary_samples(cam, cam_rt, det_table, px, py, ck)),
+            path_length, compaction=compaction)
         return torch.stack(counts).tolist() if counts else []
 
-    def render_chunk(px, py, buckets):
-        res, ovf = pixel_colors(ir, rt, cam_rt, *sample_args(px, py), S,
+    def render_chunk(px, py, ck, buckets):
+        res, ovf = pixel_colors(ir, rt, cam_rt,
+                                *primary_samples(cam, cam_rt, det_table, px,
+                                                 py, ck), S,
                                 path_length, buckets=buckets,
-                                compaction=compaction)
+                                compaction=compaction,
+                                rng=None if ck is None else ck.fold(1))
         return res, bool(ovf)
 
     total = W * H
@@ -177,7 +255,7 @@ def render_scene(scene: SceneDesc, dtype=torch.float32,
         idx = torch.arange(c * chunk_pixels, (c + 1) * chunk_pixels,
                            device=device)
         idx = torch.where(idx < total, idx, 0)
-        return idx % W, idx // W
+        return idx % W, idx // W, None if root is None else root.fold(c)
 
     buckets = ()
     if use_bucketed:
@@ -201,24 +279,25 @@ def render_scene(scene: SceneDesc, dtype=torch.float32,
     for c in range(start_chunk, n_chunks):
         lo = c * chunk_pixels
         hi = min(lo + chunk_pixels, total)
-        px, py = chunk_arrays(c)
-        res, ovf = render_chunk(px, py, buckets if use_bucketed else None)
+        px, py, ck = chunk_arrays(c)
+        res, ovf = render_chunk(px, py, ck,
+                                buckets if use_bucketed else None)
         if ovf:
             # exact per-level counts for THIS chunk; the escalated buckets
             # serve the rest of the render
-            esc = quantize_buckets(probe_counts(px, py), 1.2)
+            esc = quantize_buckets(probe_counts(px, py, ck), 1.2)
             buckets = tuple(max(a, b) for a, b in zip(buckets, esc))
             stats["buckets"] = buckets
             stats["escalations"] += 1
             print(f"bucket overflow: recalibrated to {buckets}", flush=True)
-            res, ovf = render_chunk(px, py, buckets)
+            res, ovf = render_chunk(px, py, ck, buckets)
         if ovf:
             # probe ceiling exceeded (spawns > 3x primary): never silent —
             # the unrolled exact path re-renders the chunk
             stats["exact_chunks"] += 1
             print(f"bucket overflow persists (buckets={buckets}): chunk "
                   "re-rendered on the exact unrolled path", flush=True)
-            res, _ = render_chunk(px, py, None)
+            res, _ = render_chunk(px, py, ck, None)
         out[lo:hi] = res[: hi - lo].cpu().double().numpy()
         if checkpoint_path is not None and (
                 (c + 1) % checkpoint_every == 0 or c + 1 == n_chunks):

@@ -17,11 +17,16 @@ a CSG difference, each pattern bound to a real material map slot.
 `soft_textured` is the frontend workload: a YAML scene with area, circle
 and hemisphere lights and image textures (PNG through an MTL file on the
 mesh, a 16-bit PPM on the floor), its assets written at first use.
+
+`cornell_box` is the photon-mapped GI workload: the JAX package's GI
+bench configuration (100,000 photons, a 3x3 final gather, caustics, a
+jittered 10x10 area light) in a stand-in box, with a clustered mesh block.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 from pathlib import Path
 from typing import Optional
@@ -464,3 +469,128 @@ def soft_textured(width: int = 800, height: int = 400,
         if not path.exists():
             write_torus_obj(path, *n, uv=True, mtl="stone.mtl")
     return scene_from_tree(_soft_tree(width, height, obj), str(SOFT_DIR))
+
+
+CORNELL_DIR = SCENE_DIR / "cornell_box"
+# the tall block's faces are cut into n x n quads: 12 n^2 triangles
+CORNELL_BLOCK_CUTS = 29
+
+
+def write_block_obj(path, size, cuts: int) -> str:
+    """Write an axis-aligned box of edges `size` centred on the origin as an
+    OBJ file of flat triangles, each face cut into cuts x cuts quads of two
+    triangles (12 cuts^2 in all). The winding is not oriented: shading
+    faces every normal toward the ray. Deterministic. Returns the path."""
+    half = np.asarray(size, np.float64) / 2.0
+    t = np.linspace(-1.0, 1.0, cuts + 1)
+    verts, faces = [], []
+    for axis in range(3):
+        a, b = [k for k in range(3) if k != axis]
+        for sign in (-1.0, 1.0):
+            base = len(verts)
+            for i in range(cuts + 1):
+                for j in range(cuts + 1):
+                    p = np.zeros(3)
+                    p[axis], p[a], p[b] = sign, t[i], t[j]
+                    verts.append(p * half)
+            for i in range(cuts):
+                for j in range(cuts):
+                    q = [base + i * (cuts + 1) + j + 1,
+                         base + (i + 1) * (cuts + 1) + j + 1,
+                         base + (i + 1) * (cuts + 1) + j + 2,
+                         base + i * (cuts + 1) + j + 2]
+                    faces += [(q[0], q[1], q[2]), (q[0], q[2], q[3])]
+    lines = [f"# box {tuple(size)}, {cuts} x {cuts} cuts a face"]
+    lines += ["v %.17g %.17g %.17g" % tuple(v) for v in verts]
+    lines += ["f %d %d %d" % f for f in faces]
+    _write_atomic(path, "\n".join(lines) + "\n")
+    return str(path)
+
+
+def _cornell_tree(width: int, height: int, obj) -> list:
+    """The Cornell box as a YAML document (entries of the reference
+    schema): a 2 x 2 x 2 box open toward the camera, white floor, ceiling
+    and back wall, a red left and a green right wall, a jittered 10x10
+    area light just under the ceiling, a mirror and a glass sphere, and,
+    with `obj`, a tall block from that OBJ file."""
+    def wall(color, transform):
+        return {"add": "plane", "transform": transform,
+                "material": {"color": color, "ambient": 0.05,
+                             "diffuse": 0.7, "specular": 0.0}}
+    white, red, green = [0.73, 0.73, 0.73], [0.65, 0.06, 0.05], \
+        [0.12, 0.45, 0.15]
+    half_pi = math.pi / 2.0
+    tree = [
+        {"add": "config",
+         "illumination": {
+             "include-direct": True, "include-global": True,
+             "direct-illumination": {"path-length": 5},
+             "global-illumination": {
+                 "photon-count": 100000, "path-length": 5,
+                 "include-caustics": True, "include-final-gather": True,
+                 "usteps": 3, "vsteps": 3,
+                 "irradiance-estimate-num": 100,
+                 "irradiance-estimate-radius": 0.1,
+                 "irradiance-estimate-cone-filter-k": 1.0}},
+         "scene": {"divide-threshold": 1},
+         "output": {"color-space": "RGB"}},
+        {"add": "camera", "width": width, "height": height,
+         "field-of-view": 0.75, "from": [0.0, 1.0, -3.4],
+         "to": [0.0, 1.0, 0.0], "up": [0.0, 1.0, 0.0],
+         "aperture": {"type": ["POINT_APERTURE"], "size": 0.0,
+                      "jitter": False}},
+        {"add": "light", "corner": [-0.3, 1.99, -0.3],
+         "uvec": [0.6, 0.0, 0.0], "vvec": [0.0, 0.0, 0.6], "usteps": 10,
+         "vsteps": 10, "jitter": True, "intensity": [1.2, 1.2, 1.2]},
+        wall(white, []),
+        wall(white, [["translate", 0.0, 2.0, 0.0]]),
+        wall(white, [["rotate-x", half_pi], ["translate", 0.0, 0.0, 1.0]]),
+        wall(red, [["rotate-z", half_pi], ["translate", -1.0, 0.0, 0.0]]),
+        wall(green, [["rotate-z", half_pi], ["translate", 1.0, 0.0, 0.0]]),
+        {"add": "sphere", "transform": [["scale", 0.33, 0.33, 0.33],
+                                        ["translate", -0.5, 0.33, -0.25]],
+         "material": {"color": [0.9, 0.9, 0.9], "ambient": 0.0,
+                      "diffuse": 0.0, "specular": 0.9, "shininess": 300.0,
+                      "reflective": 0.95}},
+        {"add": "sphere", "transform": [["scale", 0.3, 0.3, 0.3],
+                                        ["translate", 0.15, 0.3, -0.55]],
+         "material": {"color": [0.9, 0.9, 0.9], "ambient": 0.0,
+                      "diffuse": 0.05, "specular": 0.9, "shininess": 300.0,
+                      "reflective": 0.1, "transparency": 0.9,
+                      "refractive-index": 1.5}},
+    ]
+    if obj is not None:
+        tree.append({"add": "obj", "file": obj,
+                     "transform": [["rotate-y", 0.3],
+                                   ["translate", 0.5, 0.6, 0.4]],
+                     "material": {"color": white, "ambient": 0.05,
+                                  "diffuse": 0.7, "specular": 0.1}})
+    return tree
+
+
+def cornell_box(width: int = 800, height: int = 800,
+                mesh: bool = True) -> SceneDesc:
+    """The photon-GI frame, a stand-in for the reference's
+    scenes/cornell_box/cornell_box.yml (not in the repo) after SURVEY.md
+    and tools/make_reduced_scenes.py's cornell_small: one sample per
+    pixel, Whitted depth 5, GI path length 5, 100,000 photons, global
+    illumination with a 3x3 final gather and caustics, an irradiance
+    estimate of 100 photons within 0.1 (a twentieth of the box's edge). With `mesh`
+    the box holds a tall block of 12 * 29^2 = 10,092 flat triangles (so
+    clustered) beside the spheres.
+
+    The block's OBJ file and the scene as YAML (`cornell_box.yml`, at
+    800x800 with the block) are written to build/scenes/cornell_box/ on
+    first use. The scene is built from the same YAML document, without
+    PyYAML."""
+    CORNELL_DIR.mkdir(parents=True, exist_ok=True)
+    obj = "block.obj"
+    if not (CORNELL_DIR / obj).exists():
+        write_block_obj(CORNELL_DIR / obj, (0.5, 1.2, 0.5), CORNELL_BLOCK_CUTS)
+    if not (CORNELL_DIR / "cornell_box.yml").exists():
+        _write_atomic(CORNELL_DIR / "cornell_box.yml",
+                      "# scene/demo.cornell_box(800, 800), written by it\n"
+                      + json.dumps(_cornell_tree(800, 800, obj), indent=1)
+                      + "\n")
+    return scene_from_tree(_cornell_tree(width, height, obj if mesh else None),
+                           str(CORNELL_DIR))

@@ -8,11 +8,14 @@ and texture paths resolve. A compiled JAX SceneIR crosses over as numpy
 tables plus its SceneMeta, which the port's SceneMeta copies field for
 field (`ir_from_jax`): the light tables (sample points, masks, edges,
 normals, radii) and the texture atlas included. `jax_canvas` renders a
-scene's frame through the JAX package's bucketed wavefront."""
+scene's frame through the JAX package's bucketed wavefront. `JaxKeys`
+stands in for the port's RNG node and draws with jax keys, so a port
+sampler consumes exactly the numbers its JAX counterpart draws."""
 
 import dataclasses
 
 import numpy as np
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -83,3 +86,35 @@ def jax_canvas(scene, buckets):
                        jnp.asarray(np.repeat(np.arange(h), w)))
     assert not bool(ovf), "JAX trace_bucketed overflowed"
     return np.asarray(img).reshape(h, w, 3)
+
+
+_JNP = {torch.float32: jnp.float32, torch.float64: jnp.float64}
+
+
+class JaxKeys:
+    """The port's RNG interface (sampling/rng.py) over a jax key: fold and
+    split as jax.random.fold_in and split, draws as jax.random.uniform,
+    normal and randint (default dtypes), returned as CPU tensors."""
+
+    device = torch.device("cpu")
+
+    def __init__(self, key):
+        self.key = key
+
+    def fold(self, i):
+        return JaxKeys(jax.random.fold_in(self.key, i))
+
+    def split(self, n):
+        return [JaxKeys(k) for k in jax.random.split(self.key, n)]
+
+    def uniform(self, shape, dtype):
+        return torch.from_numpy(np.array(jax.random.uniform(
+            self.key, tuple(shape), _JNP[dtype])))
+
+    def normal(self, shape, dtype):
+        return torch.from_numpy(np.array(jax.random.normal(
+            self.key, tuple(shape), _JNP[dtype])))
+
+    def randint(self, shape, low, high):
+        return torch.from_numpy(np.array(jax.random.randint(
+            self.key, tuple(shape), low, high))).to(torch.int64)

@@ -293,6 +293,11 @@ def test_construct_ppm():
 @pytest.mark.parametrize("change", ["photon_gi", "jitter", "area_jitter",
                                     "aperture"])
 def test_unported_features_raise(change):
+    """What raised before the stochastic slice renders now, from a seed
+    and the same for the same seed; what of it is still unported,
+    gradients through photon GI, raises NotImplementedError."""
+    from fast_ray_tracer_tpu_torch.render import photon as tph
+    from fast_ray_tracer_tpu_torch.render import render as trender
     sc = tdemo.glass_spheres(8, 4)
     if change == "photon_gi":
         sc.config.include_global = True
@@ -304,10 +309,25 @@ def test_unported_features_raise(change):
                                       jitter=True)]
     else:
         sc.camera.aperture = tmodel.ApertureDesc(kind="CIRCULAR_APERTURE",
-                                                 size=0.1)
-    from fast_ray_tracer_tpu_torch.render.render import render_scene
-    with pytest.raises(NotImplementedError):
-        render_scene(sc, dtype=torch.float64, device="cpu")
+                                                 size=0.1, params=(1.0,))
+    a = trender.render_scene(sc, dtype=torch.float64, device="cpu", seed=2)
+    assert np.isfinite(a).all()
+    np.testing.assert_array_equal(
+        a, trender.render_scene(sc, dtype=torch.float64, device="cpu",
+                                seed=2))
+    if change != "photon_gi":
+        return
+    ir = tcomp.compile_scene(sc, dtype=torch.float64, device="cpu")
+    rt = tintg.build_statics(ir, sc.config)._replace(
+        gi_hook=tph.make_gi_hook({}, sc.config))
+    cam_rt = tcam.build_camera(sc.camera, dtype=torch.float64, device="cpu")
+    ir.mat_Kd.requires_grad_(True)
+    n = 4
+    with pytest.raises(NotImplementedError, match="next slice"):
+        trender.pixel_colors(ir, rt, cam_rt, torch.arange(n),
+                             torch.zeros(n, dtype=torch.int64),
+                             torch.full((n, 2), 0.5, dtype=torch.float64),
+                             torch.zeros((n, 2), dtype=torch.float64), 1, 5)
 
 
 @pytest.mark.parametrize("change", ["area_light", "texture", "xyz"])
