@@ -137,12 +137,42 @@ Phases, one line each or more:
  27. GI output: the sha256 of the Cornell frame's PPM, and the PNG that
      `python -m fast_ray_tracer_tpu_torch` writes from cornell_box.yml
      with --seed SEED, read back bitwise equal to the frame's encode.
+ 28. Cornell forward+backward set-up: cornell_box(800, 800) in float32,
+     depth 5, the photon pass at SEED (no autograd), the GI hook with live
+     photon powers, every float table a parameter (the block's tri_*
+     too); chunks of FB_CHUNK pixels covering all 640,000, buckets from
+     the most spawns any chunk's probe counts at FB_MARGIN (the JAX
+     bench probes its chunk 0 alone: the port's chunk 0, the top rows,
+     holds no specular surface); the live powers of both maps bitwise the
+     stored ones;
+ 29. Cornell forward+backward: a warm-up chunk, then one frame, timed
+     (fwd_bwd_ms_cornell_800x800, ms a chunk) and counting each kernel's
+     launches in the chunks' forwards and backwards, the chunk
+     losses sum((img - 0.5)^2) with remat="level", their gradients
+     accumulating into the frame's; peak device memory within
+     FB_PEAK_BUDGET; fails on an overflowed chunk, a non-finite loss or
+     gradient, a zero L1 of the mat_Kd and light_intensity gradients or an
+     all-zero tri_p1 gradient;
+ 30. forward+backward equality: the gradients of 8192 pixels through the
+     spheres and the block (FB_HELD, its own probe's buckets) with the
+     kernels against those with the plain compaction and the plain mesh
+     queries, within TRAIN_STRIP_RTOL of each field's largest |g|;
+ 31. forward+backward card against CPU: cornell_box(16, 16) with the
+     block in float64, 4,000 photons a map traced on the CPU, the draws
+     made on the CPU for both sides: every field within
+     TRAIN_CARD_CPU_RTOL of its largest |g|;
+ 32. Adam with the block: one make_train_step step with an RNG node on
+     the held pixels moves the block's vertices; on the moved mesh the
+     closest kernel equals its plain version bitwise on their camera
+     rays.
 Then the compaction's device time per call from torch.profiler, one
 profiled warm train step, one profiled warm showcase and soft frame each
 (device events, device busy time, idle share against the warm wall, and
 top operators by device time), and the middle chunk of a warm Cornell
 frame (the same, the chunk's idle share against its unprofiled wall,
-and the irradiance estimate's device time and share), after every
+and the irradiance estimate's device time and share) and the middle
+chunk of the Cornell forward+backward (device events only: kernel
+launches, busy time, idle share, top kernels), after every
 wall-clock phase (the profiler leaves launches slower); the card's
 nvidia-smi line, a JSON line of per-kernel results and, last, the device
 JSON line. Any failure raises and exits non-zero.
@@ -1774,6 +1804,375 @@ def check_soft_card_vs_cpu(device, w=64, h=32):
                              "texel-flip rule")
 
 
+# ---------------------------------------------------------------------------
+# the GI and mesh gradient slice: the Cornell forward+backward
+# ---------------------------------------------------------------------------
+
+# pixels a chunk of the 800x800 Cornell forward+backward: the largest power
+# of two whose frame peaks within FB_PEAK_BUDGET of device memory; frames
+# of 2^16, 2^17 and 2^18 pixel chunks peaked at 21.426, 33.188 and 48.651
+# GiB on an NVIDIA H100 80GB HBM3, 700.00 W (tools/cornell_fwd_bwd_chunks.py;
+# PERF.md, section 6)
+FB_CHUNK = 1 << 17
+FB_PEAK_BUDGET = 40 << 30
+# bucket margin over the probed spawn counts (the JAX package's
+# bench_extras.fwd_bwd_cornell takes 1.35x, in multiples of 256 lanes)
+FB_MARGIN = 1.35
+# the held chunks (plain versions, the Adam step): 8192 pixels from row 560
+# on, where the spheres and the block sit
+FB_HELD = (560 * CW, 8192)
+
+
+def fb_buckets(counts):
+    return [max(256, int(np.ceil(c * FB_MARGIN / 256.0)) * 256)
+            for c in counts]
+
+
+class HostDraws:
+    """An RNG node whose draws are made on the CPU and moved to `device`,
+    so that the card and the CPU consume the same numbers."""
+
+    def __init__(self, rng, device):
+        self.rng, self.device = rng, torch.device(device)
+
+    def fold(self, i):
+        return HostDraws(self.rng.fold(i), self.device)
+
+    def split(self, n):
+        return [HostDraws(r, self.device) for r in self.rng.split(n)]
+
+    def uniform(self, shape, dtype):
+        return self.rng.uniform(shape, dtype).to(self.device)
+
+    def normal(self, shape, dtype):
+        return self.rng.normal(shape, dtype).to(self.device)
+
+    def randint(self, shape, low, high):
+        return self.rng.randint(shape, low, high).to(self.device)
+
+
+class CornellGrad:
+    """cornell_box(w, h) on `device` set up for its forward+backward: the
+    photon pass at SEED (under no_grad, as trace_photons runs; or `maps`,
+    moved to the device), the draws from `draws` (an RNG node; the root
+    of SEED by default), the GI hook with live photon powers, every float
+    table a parameter (split_params: the block's tri_* too), pixel chunks
+    of `chunk` in order (the last one shorter), each drawing as
+    render_scene's chunk does from the root's fold(chunk). `buckets`
+    default to the most that any chunk's spawn-count probe counts, at
+    FB_MARGIN. The loss of a chunk is sum((img - 0.5)^2), through
+    pixel_colors with remat="level"."""
+
+    def __init__(self, device, chunk=FB_CHUNK, w=CW, h=CH,
+                 dtype=torch.float32, photons=None, maps=None, draws=None,
+                 buckets=None):
+        scene = cornell_box(w, h)
+        if photons is not None:
+            scene.config = replace(scene.config, photon_count=photons)
+        self.cfg = cfg = scene.config
+        self.w, self.total, self.chunk = w, w * h, chunk
+        self.device, self.dtype = torch.device(device), dtype
+        self.ir = compile_scene(scene, dtype=dtype, device=device)
+        rt = build_statics(self.ir, cfg)
+        self.root = RNG(SEED, device) if draws is None else draws
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if maps is None:
+            maps = photon.trace_photons(
+                self.ir, rt, self.root.fold(PHOTON_FOLD), dtype,
+                caustic=cfg.include_caustics,
+                global_=cfg.include_final_gather)
+        self.maps = {m: None if pm is None else pm.to(device)
+                     for m, pm in maps.items()}
+        torch.cuda.synchronize()
+        self.photon_s = time.perf_counter() - t0
+        self.rt = rt._replace(gi_hook=photon.make_gi_hook(
+            self.maps, cfg, live_power=True))
+        self.cam_desc = scene.camera
+        self.cam = build_camera(scene.camera, dtype=dtype, device=device)
+        self.det = torch.as_tensor(cmj_points_static(1, 1)).to(
+            device=device, dtype=dtype)
+        self.depth = cfg.di_path_length
+        self.params, self.static = split_params(self.ir)
+        self.n_chunks = -(-self.total // chunk)
+        if buckets is None:
+            self.chunk_counts = [self.probe(c) for c in range(self.n_chunks)]
+            self.counts = [max(v) for v in zip(*self.chunk_counts)]
+            buckets = fb_buckets(self.counts)
+        self.buckets = list(buckets)
+
+    def args(self, c, span=None):
+        """((px, py, uv, ap), trace rng) of chunk c, or of pixels
+        [lo, lo + n) for span=(lo, n)."""
+        lo, n = span or (c * self.chunk, self.chunk)
+        idx = torch.arange(lo, min(lo + n, self.total), device=self.device)
+        ck = self.root.fold(c)
+        return (render_module.primary_samples(
+            self.cam_desc, self.cam, self.det, idx % self.w, idx // self.w,
+            ck), ck.fold(1))
+
+    def probe(self, c, span=None):
+        (px, py, uv, ap), _ = self.args(c, span)
+        counts = spawn_counts(self.ir, self.rt, *rays_for_pixels(
+            self.cam, px, py, uv, ap), self.depth)
+        return torch.stack(counts).tolist()
+
+    def loss(self, c, params=None, span=None, buckets=None, **kw):
+        """(loss, overflow) of chunk c (or of the span) at `params`."""
+        params = self.params if params is None else params
+        (px, py, uv, ap), rng = self.args(c, span)
+        img, ovf = pixel_colors(
+            merge_params(params, self.static), self.rt, self.cam, px, py, uv,
+            ap, 1, self.depth, remat="level",
+            buckets=self.buckets if buckets is None else buckets, rng=rng,
+            **kw)
+        return ((img - 0.5) ** 2).sum(), ovf
+
+    def grads(self, c, span=None, buckets=None, **kw):
+        """{key: gradient} of one chunk's (or span's) loss, and the
+        overflow flag."""
+        params = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in self.params.items()}
+        loss, ovf = self.loss(c, params, span, buckets, **kw)
+        keys = [k for k, v in params.items() if v.numel()]
+        gs = torch.autograd.grad(loss, [params[k] for k in keys],
+                                 allow_unused=True)
+        return {k: torch.zeros_like(params[k]) if g is None else g
+                for k, g in zip(keys, gs)}, bool(ovf)
+
+
+def _launch_counts():
+    return {**compact.LAUNCHES, **mesh.LAUNCHES}
+
+
+def _reset_launches():
+    compact.LAUNCHES.update(compact=0, expand=0)
+    mesh.LAUNCHES.update(mesh_closest=0, mesh_shadow=0)
+
+
+def fb_frame(cg):
+    """One forward+backward of the whole frame, chunk by chunk, the chunk
+    gradients accumulating into the parameters' .grad, one host sync at
+    the end: (wall s, loss, overflow flags, each kernel's launches in the
+    chunks' forwards and in their backwards; the counters are host-side
+    and read without a sync)."""
+    for p in cg.params.values():
+        p.grad = None
+    fwd = {k: 0 for k in _launch_counts()}
+    bwd = dict(fwd)
+    losses, ovfs = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c in range(cg.n_chunks):
+        _reset_launches()
+        loss, ovf = cg.loss(c)
+        f = _launch_counts()
+        loss.backward()
+        b = _launch_counts()
+        for k in fwd:
+            fwd[k] += f[k]
+            bwd[k] += b[k] - f[k]
+        losses.append(loss.detach())
+        ovfs.append(ovf)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    loss = float(torch.stack(losses).sum())
+    return wall, loss, [bool(x) for x in ovfs], fwd, bwd
+
+
+def cornell_fwd_bwd(device):
+    """The 800x800 Cornell forward+backward (phases 28-29): set-up and the
+    photon pass, the live powers of both maps bitwise the stored ones, a
+    warm-up chunk, then one counted frame and one timed frame; gates:
+    no chunk overflowed, a finite loss and gradient, a positive L1 of the
+    mat_Kd and light_intensity gradients, a non-zero tri_p1 gradient, the
+    peak within FB_PEAK_BUDGET."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    cg = CornellGrad(device)
+    setup = time.perf_counter() - t0
+    same = {}
+    for m, name in ((photon.CAUSTIC, "caustic"), (photon.GLOBAL, "global")):
+        pm = cg.maps[m]
+        with torch.no_grad():
+            same[name] = torch.equal(photon.live_photon_powers(pm, cg.ir),
+                                     pm.power)
+    log("fwd-bwd", f"{CW}x{CH} depth {cg.depth} float32, seed {SEED}: "
+        f"photon pass {cg.photon_s:.4f} s ({cg.maps[photon.CAUSTIC].n} "
+        f"caustic, {cg.maps[photon.GLOBAL].n} global photons), set-up "
+        f"{setup:.2f} s with the probe of {cg.n_chunks} chunks of "
+        f"{cg.chunk} pixels (most spawns {cg.counts}, chunk 0's "
+        f"{cg.chunk_counts[0]}; buckets {cg.buckets}); live photon powers "
+        f"bitwise the stored: {same}")
+    if not all(same.values()):
+        raise AssertionError("live photon powers differ from the stored "
+                             "ones on the card")
+    t0 = time.perf_counter()
+    loss, ovf = cg.loss(0)
+    loss.backward()
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats(device)
+    wall, loss, ovfs, fwd, bwd = fb_frame(cg)
+    peak = torch.cuda.max_memory_allocated(device)
+    g = {k: p.grad for k, p in cg.params.items() if p.grad is not None}
+    finite = all(bool(torch.isfinite(x).all()) for x in g.values())
+    l1 = float(g["mat_Kd"].abs().sum() + g["light_intensity"].abs().sum())
+    tri = float(g["tri_p1"].abs().max())
+    log("fwd-bwd", f"fwd_bwd_ms_cornell_800x800 {wall * 1e3:.1f} "
+        f"({cg.n_chunks} chunks of {cg.chunk} pixels, all 640,000 pixels; "
+        f"{wall * 1e3 / cg.n_chunks:.1f} ms a chunk); warm-up chunk "
+        f"{warm:.3f} s; peak device memory {peak / 2**30:.3f} GiB (budget "
+        f"{FB_PEAK_BUDGET / 2**30:.0f} GiB); loss {loss:.6g}; launches "
+        f"forward {fwd}, backward {bwd}; overflow {ovfs}; gradients finite "
+        f"{finite}; L1 of mat_Kd + light_intensity {l1:.6g}; max |tri_p1| "
+        f"{tri:.6g}")
+    if any(ovfs) or bool(ovf):
+        raise AssertionError("a Cornell forward+backward chunk overflowed "
+                             "its buckets")
+    if not (finite and np.isfinite(loss)):
+        raise AssertionError("non-finite Cornell loss or gradient")
+    if not l1 > 0.0 or not tri > 0.0:
+        raise AssertionError("zero Kd/intensity or vertex gradient")
+    if peak > FB_PEAK_BUDGET:
+        raise AssertionError("the Cornell forward+backward peaked past its "
+                             "budget")
+    if min(fwd.values()) < 1 or min(bwd[k] for k in ("compact",
+                                                     "expand")) < 1:
+        raise AssertionError(f"a kernel of the forward+backward never ran: "
+                             f"forward {fwd}, backward {bwd}")
+    return cg, {"ms": wall * 1e3, "chunk_ms": wall * 1e3 / cg.n_chunks,
+                "peak": peak, "fwd": fwd, "bwd": bwd, "photon_s": cg.photon_s,
+                "chunk": cg.chunk}
+
+
+def profile_fb_chunk(cg, c=None):
+    """One warm chunk's forward+backward (the middle one) under
+    torch.profiler, device activity only (reading CPU events of a chunk's
+    ~10^5 launches takes minutes): its unprofiled wall, device busy time
+    and idle share, and the top kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+    c = cg.n_chunks // 2 if c is None else c
+
+    def run():
+        for p in cg.params.values():
+            p.grad = None
+        loss, _ = cg.loss(c)
+        loss.backward()
+        torch.cuda.synchronize()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+    t0 = time.perf_counter()
+    rows = prof.key_averages()
+    kernels, copies, busy, _ = profile_summary(prof, rows)
+    self_dev = lambda e: getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0))
+    top = sorted(rows, key=self_dev, reverse=True)[:8]
+    tops = ", ".join(f"{e.key[:60]} {self_dev(e) / 1e3:.2f} ms ({e.count})"
+                     for e in top)
+    log("fwd-bwd-profile", f"chunk {c} of {cg.n_chunks}: {kernels} kernel "
+        f"launches and {copies} copies/memsets; unprofiled wall {wall:.4f} s"
+        f", device busy {busy:.4f} s -> device idle share "
+        f"{1 - busy / wall:.3f}; top kernels by device time: {tops}; read "
+        f"in {time.perf_counter() - t0:.1f} s")
+    return {"busy_s": busy, "wall_s": wall}
+
+
+def check_fb_plain(cg):
+    """The held chunk's gradients (kernels) against those with the plain
+    compaction and the plain mesh queries, within TRAIN_STRIP_RTOL of
+    each field's largest |g|."""
+    span = FB_HELD
+    buckets = fb_buckets(cg.probe(0, span))
+    kern, ovf = cg.grads(0, span, buckets)
+    with plain_mesh():
+        plain, ovf_p = cg.grads(0, span, buckets, compaction="plain")
+    same = all(torch.equal(kern[k], plain[k]) for k in kern)
+    diff = _grad_diff(kern, plain)
+    worst = max(diff, key=diff.get)
+    log("fwd-bwd-equal", f"{span[1]} pixels from pixel {span[0]}, buckets "
+        f"{buckets}: kernel vs plain-versions gradients bitwise={same}, "
+        f"largest share of a field's max |g| {diff[worst]:.3e} ({worst}); "
+        f"bound {TRAIN_STRIP_RTOL}; overflow {ovf or ovf_p}")
+    if ovf or ovf_p or diff[worst] > TRAIN_STRIP_RTOL:
+        raise AssertionError("Cornell gradients with the kernels differ "
+                             "from the plain versions'")
+
+
+def check_fb_card_vs_cpu(device, w=16, h=16, photons=4000):
+    """cornell_box(w, h) with the block in float64: the maps traced once on
+    the CPU and moved to the card, the draws made on the CPU for both
+    (HostDraws), the CPU's buckets; each field's gradient of the whole
+    frame as one chunk on the card within TRAIN_CARD_CPU_RTOL of its
+    largest |g| on the CPU."""
+    cpu = torch.device("cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        t0 = time.perf_counter()
+        ref = CornellGrad(cpu, w * h, w, h, torch.float64, photons,
+                          draws=HostDraws(RNG(SEED), cpu))
+        want, ovf_c = ref.grads(0)
+        cpu_s = time.perf_counter() - t0
+        card = CornellGrad(device, w * h, w, h, torch.float64, photons,
+                           maps=ref.maps, draws=HostDraws(RNG(SEED), device),
+                           buckets=ref.buckets)
+        got, ovf = card.grads(0)
+    finally:
+        torch.set_num_threads(threads)
+    diff = _grad_diff({k: v.cpu() for k, v in got.items()}, want)
+    worst = max(diff, key=diff.get)
+    log("fwd-bwd-card-cpu", f"{w}x{h} float64 with the block, {photons} "
+        f"photons a map: {len(diff)} fields, largest share of a field's "
+        f"max |g| {diff[worst]:.3e} ({worst}); bound {TRAIN_CARD_CPU_RTOL}; "
+        f"CPU side {cpu_s:.1f} s; overflow {ovf or ovf_c}")
+    if ovf or ovf_c or diff[worst] > TRAIN_CARD_CPU_RTOL:
+        raise AssertionError("Cornell card gradients differ from the CPU's")
+
+
+def check_fb_adam(cg):
+    """One Adam step (make_train_step, an RNG node) on the held chunk with
+    a grey target: the block's vertices move; on the moved mesh the
+    closest kernel equals its plain version bitwise on the chunk's camera
+    rays."""
+    span = FB_HELD
+    buckets = fb_buckets(cg.probe(0, span))
+    params = {k: v.detach().clone().requires_grad_(True)
+              for k, v in cg.params.items()}
+    init, step = make_train_step(cg.rt, cg.cam, cg.static, 1, cg.depth,
+                                 remat="level", buckets=buckets)
+    state = init(params)
+    (px, py, uv, ap), rng = cg.args(0, span)
+    before = params["tri_p1"].detach().clone()
+    target = torch.full((px.shape[0], 3), 0.5, dtype=cg.dtype,
+                        device=cg.device)
+    state, loss, ovf = step(state, px, py, uv, ap, target, rng)
+    # the block's tail padding (to whole clusters) holds non-finite rows
+    fin = torch.isfinite(before)
+    moved = float((params["tri_p1"].detach() - before)[fin].abs().max())
+    m = cg.rt.mesh._replace(tris=mesh.pack_tris(
+        *(params[k].detach() for k in ("tri_p1", "tri_e1", "tri_e2"))))
+    o, d = rays_for_pixels(cg.cam, px, py, uv, ap)
+    got = mesh.closest_cuda(m, o.contiguous(), d.contiguous())
+    want = mesh.closest_plain(m, o.contiguous(), d.contiguous())
+    same, _ = _equal_outputs(got, want)
+    hits = int(torch.isfinite(got[0]).sum())
+    log("fwd-bwd-adam", f"one Adam step on {span[1]} pixels from pixel "
+        f"{span[0]}: loss {float(loss):.6g}, overflow {bool(ovf)}, the "
+        f"block's vertices moved by up to {moved:.3g}; on the moved mesh "
+        f"closest kernel vs plain on the chunk's camera rays ({hits} mesh "
+        f"hits) bitwise={same}")
+    if bool(ovf) or not np.isfinite(float(loss)) or not moved > 0.0:
+        raise AssertionError("the Adam step overflowed or moved no vertex")
+    if not same or not hits:
+        raise AssertionError("mesh closest != plain on the moved mesh")
+
+
 def profile_summary(prof, rows=None):
     """(kernel launches, copies and memsets, device busy s, the top eight
     aten operators by device time as text) of a torch.profiler run;
@@ -2031,12 +2430,24 @@ def main():
     cornell_output(ccanvas)
     log("cornell", f"phases 22-27 took {time.perf_counter() - t0:.1f} s")
 
+    # 28-32. the GI and mesh gradient path: the 800x800 Cornell
+    # forward+backward counted and timed with its live photon powers, a
+    # chunk against the plain versions, the card against the CPU, and an
+    # Adam step that moves the block
+    t0 = time.perf_counter()
+    cg, fb = cornell_fwd_bwd(device)
+    check_fb_plain(cg)
+    check_fb_card_vs_cpu(device)
+    check_fb_adam(cg)
+    log("fwd-bwd", f"phases 28-32 took {time.perf_counter() - t0:.1f} s")
+
     kstats["compact"]["device_ms"] = compact_device_ms(
         device, W * H, b0, kstats["compact"]["ms"])
     profile_showcase(device, show_wall)
     profile_showcase(device, soft_wall, soft_textured(W, H), "soft-profile")
     profile_train_step(device, tstats["level"]["ms"])
     profile_cornell(device)
+    profile_fb_chunk(cg)
     if args.profile:
         profile_to(args.profile, device, b0, f"{kind}; {smi}", wall,
                    mesh_wall)
@@ -2057,6 +2468,8 @@ def main():
                      "launches_train_bwd": tstats["level"]["bwd"][key],
                      "launches_dof": dof_launches[key],
                      "launches_cornell": claunches[key],
+                     "launches_cornell_fwd_bwd_fwd": fb["fwd"][key],
+                     "launches_cornell_fwd_bwd_bwd": fb["bwd"][key],
                      **kstats[key]})
     for name, key, replaces in (
             ("mesh_closest", "closest",
@@ -2070,6 +2483,8 @@ def main():
                      "launches_train_fwd": 0, "launches_train_bwd": 0,
                      "launches_dof": dof_launches[f"mesh_{key}"],
                      "launches_cornell": claunches[f"mesh_{key}"],
+                     "launches_cornell_fwd_bwd_fwd": fb["fwd"][f"mesh_{key}"],
+                     "launches_cornell_fwd_bwd_bwd": fb["bwd"][f"mesh_{key}"],
                      **mstats[key]})
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -15,7 +15,10 @@ triangles and OBJ/MTL meshes, CSG trees, every procedural pattern and uv
 map with Perlin noise and bump maps, image textures (PPM, PNG, others
 through Pillow), point and hemisphere lights and unjittered area and
 circle lights, every input color space, reflective and refractive
-materials, a point aperture, and the static-bucket wavefront. Its stream compaction and the
+materials, a point aperture, and the static-bucket wavefront; and the
+stochastic render: jittered lights and cameras, shaped apertures and
+photon-mapped GI, drawn from one RNG tree (`sampling/rng.py`). Its
+stream compaction and the
 clustered meshes' closest-hit and shadow queries run in hand-written
 CUDA kernels (`ops/compact.py` + `csrc/compact.cu`, `ops/mesh.py` +
 `csrc/mesh.cu`).
@@ -23,12 +26,12 @@ CUDA kernels (`ops/compact.py` + `csrc/compact.cu`, `ops/mesh.py` +
 Gradients: `render.render.pixel_colors` is differentiable through the
 unrolled and the bucketed wavefront (the compaction kernels are each
 other's backward), with per-level checkpointing (`remat`);
+through clustered meshes (the mesh hit's t) and through photon-mapped
+GI (live photon powers, `render/photon.make_gi_hook(live_power=True)`);
 `parallel/train.py` splits a SceneIR into parameters and takes Adam
 steps, `parallel/checkpoint.py` saves and resumes training and renders.
 
-Still raising NotImplementedError: jittered lights and cameras, shaped
-apertures, photon GI, gradients through clustered meshes; there is no
-multi-device render yet.
+There is no multi-device render yet.
 
 Importing the package loads nothing heavy: import the submodules you use,
 e.g. `fast_ray_tracer_tpu_torch.render.render.render_scene`.

@@ -71,12 +71,16 @@ def _sphere_t(o, d):
     a = dot3(d, d)
     b = 2.0 * dot3(d, o)
     c, fin = _finite(dot3(o, o) - 1.0)
+    # a zero direction (in float32, a final-gather ray from a fill row,
+    # whose normal underflows to 0) has no root; its 1 / 2a would make the
+    # backward's zero cotangent NaN
+    fin = fin & (a > 0.0)
     disc = b * b - 4.0 * a * c
     ok = fin & (disc >= 0.0)
     # double-where grad guard: sqrt'(0)=inf at tangent hits / misses
     pos = fin & (disc > 0.0)
     sq = torch.where(pos, torch.sqrt(torch.where(pos, disc, 1.0)), 0.0)
-    inv2a = 1.0 / (2.0 * a)
+    inv2a = 1.0 / (2.0 * torch.where(fin, a, 1.0))
     t0 = (-b - sq) * inv2a
     t1 = (-b + sq) * inv2a
     return torch.stack([torch.where(ok, t0, torch.inf),
@@ -290,7 +294,13 @@ def closest_hit(t_cand, slot_prim, mask=None) -> Hit:
     t = torch.where(t_cand > 0.0, t_cand, torch.inf)
     if mask is not None:
         t = torch.where(mask[None], t, torch.inf)
-    tbest, idx = torch.min(t, dim=-1)     # first minimal slot on ties
+    if t.requires_grad:
+        # the first minimal slot on ties; the hit's t splits its gradient
+        # evenly over exactly tied slots, as the JAX package's jnp.min does
+        # (a ray along the seam of two walls)
+        tbest, idx = t.amin(-1), t.argmin(-1)
+    else:
+        tbest, idx = torch.min(t, dim=-1)     # first minimal slot on ties
     prim = slot_prim[idx]
     return Hit(valid=torch.isfinite(tbest), t=tbest, prim=prim)
 

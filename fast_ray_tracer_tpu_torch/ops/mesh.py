@@ -37,6 +37,12 @@ once per chunk and may be slow. None of the TPU kernel's gates carry over
 (f32 only, ranks below 2^24, Nsc <= 16384, the VMEM budget): the kernels
 take float32 and float64 and ranks as int32. `LAUNCHES` counts kernel
 launches per query.
+
+Neither the kernels nor the plain versions record an autograd graph: the
+callers run them under no_grad, and integrator.mesh_hit_t gives the
+closest hit's t its gradient through `moller_trumbore` on the winning
+triangle (the same route on both devices). The shadow and containers
+queries stay gradient-free, as in the JAX package.
 """
 
 from __future__ import annotations

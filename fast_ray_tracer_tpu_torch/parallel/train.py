@@ -3,13 +3,17 @@
 Pixel-loss gradients flow to every continuous scene parameter: material
 tables (Ka/Kd/Ks/Tf/refl/Ns/Ni/Tr), light intensities and positions,
 pattern colors and transforms, primitive inverse transforms, triangle
-vertices and texture texels. Discrete structure (hit selection, type ids,
-shadow ranks) is integer or boolean and selected through `torch.where`,
-so it carries no gradient.
+vertices (clustered meshes too, through the mesh hit's t) and texture
+texels, and through photon-mapped GI's live photon powers to the light
+and material tables. Discrete structure (hit selection, type ids, shadow
+ranks, the photon map's photons) is integer or boolean or frozen and
+selected through `torch.where`, so it carries no gradient.
 
 `build_statics` runs once on the starting scene, as in the JAX package:
 the tables it derives (each slot's primitive, each primitive's
-refractive index for the containers walk) stay fixed during training.
+refractive index for the containers walk, a clustered mesh's cluster
+boxes) stay fixed during training; the mesh's triangle planes follow the
+live vertices (render.pixel_colors).
 """
 
 from __future__ import annotations
@@ -66,28 +70,33 @@ def make_train_step(rt, cam_rt, static, n_samples: int, path_length: int,
     """-> (init, step). `init(params)` makes a TrainState whose optimizer
     (`optimizer(list_of_tensors)`, default `adam`) updates the parameters
     that require grad; the others stay frozen. `step(state, px, py, uv,
-    ap, target)` renders the pixels (`pixel_colors`), takes the MSE
-    against `target` (n_pixels, 3), back-propagates and updates the
+    ap, target, rng=None)` renders the pixels (`pixel_colors`, with `rng`
+    the trace's RNG node, as the JAX package's step takes `key`: a scene
+    that draws, photon GI's final gather among them, needs one), takes the
+    MSE against `target` (n_pixels, 3), back-propagates and updates the
     parameters in place; it returns (state, loss, overflow), both 0-d
     tensors on the device, without a host sync. It raises nothing on
     overflow: a True flag means the bucketed trace dropped rays and the
     step's gradient is incomplete, and the caller decides. `between`, if
     given, is called after the forward and before the backward (for
-    instrumentation). `remat` and `buckets` go to pixel_colors."""
+    instrumentation). `remat` and `buckets` go to pixel_colors. With
+    photon GI, `rt.gi_hook` comes from make_gi_hook(..., live_power=True)
+    for gradients through the photon map."""
     make_opt = adam if optimizer is None else optimizer
 
     def init(params: Dict[str, torch.Tensor]) -> TrainState:
         return TrainState(params, make_opt(trainable(params)))
 
-    def loss_fn(params, px, py, uv, ap, target):
+    def loss_fn(params, px, py, uv, ap, target, rng):
         img, overflow = pixel_colors(
             merge_params(params, static), rt, cam_rt, px, py, uv, ap,
-            n_samples, path_length, remat=remat, buckets=buckets)
+            n_samples, path_length, remat=remat, buckets=buckets, rng=rng)
         return torch.mean((img - target) ** 2), overflow
 
-    def step(state: TrainState, px, py, uv, ap, target, between=None):
+    def step(state: TrainState, px, py, uv, ap, target, rng=None,
+             between=None):
         state.optimizer.zero_grad(set_to_none=True)
-        loss, overflow = loss_fn(state.params, px, py, uv, ap, target)
+        loss, overflow = loss_fn(state.params, px, py, uv, ap, target, rng)
         if between is not None:
             between()
         loss.backward()

@@ -134,7 +134,11 @@ def closest_query(ir: SceneIR, rt: RenderStatics, orig, dirs,
     Returns (Hit, t_cand) — t_cand feeds the containers walk.
     shadow_filter=True takes hits on casts_shadow materials only (the
     reference's `hit(xs, true)`, which the photon pass uses,
-    photon_tracer.c:190): the slot filter, and the mesh query's keep."""
+    photon_tracer.c:190): the slot filter, and the mesh query's keep.
+
+    The mesh query (kernel or plain version) runs without autograd and
+    gives (t, triangle); its t carries the gradient of Möller–Trumbore on
+    that triangle with the live tables (mesh_hit_t), on every device."""
     meta = ir.meta
     t_cand = intersect_candidates(ir, orig, dirs)
     if meta.has_csg:
@@ -144,12 +148,34 @@ def closest_query(ir: SceneIR, rt: RenderStatics, orig, dirs,
     if not meta.use_clusters:
         return hit, t_cand
     keep = ir.mat_casts_shadow[ir.tri_material_id] if shadow_filter else None
-    t_m, idx_m = mesh.closest(rt.mesh, orig, dirs, keep)
+    with torch.no_grad():
+        t_m, idx_m = mesh.closest(rt.mesh, orig, dirs, keep)
+    t_m = mesh_hit_t(ir, t_m, idx_m, orig, dirs)
     use_m = t_m < hit.t
     return Hit(valid=hit.valid | torch.isfinite(t_m),
                t=torch.where(use_m, t_m, hit.t),
                prim=torch.where(use_m, idx_m + meta.n_analytic,
                                 hit.prim)), t_cand
+
+
+def mesh_hit_t(ir: SceneIR, t, idx, orig, dirs):
+    """The mesh query's hit distances t (R,) with the gradient of the
+    winning triangle's Möller–Trumbore t in the live tri_p1/e1/e2 and in
+    the ray, as the JAX package's plain mesh path differentiates through
+    its min (on a tie its min splits the cotangent; here the lowest index
+    takes it all). The forward value stays the query's t, bit for bit;
+    without autograd t comes back as it is."""
+    if not torch.is_grad_enabled() or not (
+            orig.requires_grad or dirs.requires_grad
+            or ir.tri_p1.requires_grad or ir.tri_e1.requires_grad
+            or ir.tri_e2.requires_grad):
+        return t
+    i = idx.long()
+    comp = [ir.tri_p1[i], ir.tri_e1[i], ir.tri_e2[i]]
+    t_re, _, _, _ = mesh.moller_trumbore(
+        [orig[:, k] for k in range(3)], [dirs[:, k] for k in range(3)],
+        [a[:, k] for a in comp for k in range(3)])
+    return torch.where(torch.isfinite(t), t + (t_re - t_re.detach()), t)
 
 
 class Comps(NamedTuple):
@@ -227,8 +253,12 @@ def prepare_computations(ir: SceneIR, rt: RenderStatics, orig, dirs,
             dn1 = dn2 = torch.ones_like(t)
             dm1 = dm2 = neg
         hit_tri = torch.where(hit.valid & (prim >= na), prim - na, -1)
-        mt1, mn1, mt2, mn2 = mesh.containers(
-            rt.mesh, orig, dirs, torch.where(hit.valid, hit.t, neg), hit_tri)
+        # gradient-free: the walk's t values only order its entries, and
+        # its Ni is the step-constant packed plane
+        with torch.no_grad():
+            mt1, mn1, mt2, mn2 = mesh.containers(
+                rt.mesh, orig, dirs, torch.where(hit.valid, hit.t, neg),
+                hit_tri)
         n1 = torch.where(mt1 > dm1, mn1, dn1)
         n2 = torch.where(mt2 > dm2, mn2, dn2)
 
@@ -287,7 +317,8 @@ def is_shadowed(ir: SceneIR, rt: RenderStatics, light_pts, p, active):
         return shadowed.reshape(R, S)
     # the analytic and mesh early-exit components: the lower rank wins
     a_rank, a_t = shadow_components(t_cand, rt.slot_rank, rt.slot_shadow)
-    m_rank, m_t = mesh.shadow(rt.mesh, o, d)
+    with torch.no_grad():
+        m_rank, m_t = mesh.shadow(rt.mesh, o, d)
     t = torch.where(m_rank < a_rank, m_t, a_t)
     return (t < df).reshape(R, S)
 

@@ -38,6 +38,13 @@ package draws from its key. The photon map's layout is the GPU's:
 cell-sorted (N, 3) position, power and direction tensors with a CSR
 `row_start` in photon units (the JAX package packs 14 photons per
 128-float row for the TPU's gathers; the estimates are the same).
+
+Gradients: the photon pass runs without autograd (the map's photons are
+frozen); `live_photon_powers` replays each stored photon's provenance
+against the live light and material tables, so a hook made with
+`make_gi_hook(..., live_power=True)` carries pixel gradients into
+light_intensity, mat_Kd, mat_refl and mat_Tf, and through the estimate's
+cone weights into the query points.
 """
 
 from __future__ import annotations
@@ -60,10 +67,10 @@ from fast_ray_tracer_tpu_torch.scene.ir import SceneIR
 
 CAUSTIC, GLOBAL = 0, 1
 
-# provenance event codes of a stored photon's power chain (the next
-# slice's live photon powers replay them): EV_KD multiplies by the hit's
-# Kd, EV_SPEC divides by its mean reflectance, EV_TRANS by its mean Tf;
-# + EV_MAPPED when the value came from a pattern sample, not the table
+# provenance event codes of a stored photon's power chain (the live
+# photon powers replay them): EV_KD multiplies by the hit's Kd, EV_SPEC
+# divides by its mean reflectance, EV_TRANS by its mean Tf; + EV_MAPPED
+# when the value came from a pattern sample, not the table
 EV_NONE, EV_KD, EV_SPEC, EV_TRANS = 0, 1, 2, 3
 EV_MAPPED = 4
 
@@ -310,8 +317,8 @@ class PhotonMap(NamedTuple):
     `grid_origin`; its id is (i * dims[1] + j) * dims[2] + k, and its
     photons are rows row_start[id] .. row_start[id + 1] of pos, power and
     dirs. The prov_* tensors (same order) are each photon's provenance:
-    the emitting light and the chains of photon_bounce_wave, for the next
-    slice's live powers."""
+    the emitting light and the chains of photon_bounce_wave, which
+    live_photon_powers replays."""
     pos: torch.Tensor            # (N, 3)
     power: torch.Tensor          # (N, 3), already / photon_count
     dirs: torch.Tensor           # (N, 3) incident directions
@@ -421,6 +428,7 @@ def _batch_size(need: float) -> int:
         0, math.ceil(math.log2(max(need, 1.0))))))
 
 
+@torch.no_grad()
 def trace_photons(ir: SceneIR, rt, rng, dtype, caustic: bool, global_: bool,
                   batch: Optional[int] = None, stats: Optional[dict] = None):
     """trace_photons (photon_tracer.c:202-257): {CAUSTIC: map, GLOBAL: map}
@@ -434,7 +442,12 @@ def trace_photons(ir: SceneIR, rt, rng, dtype, caustic: bool, global_: bool,
     MAX. Batch b of light li in map m draws from
     rng.fold(7919 m + 31 li + b), its bounces from that node's fold(1).
     If `stats` is a dict it receives, per map, the targets, the stores per
-    light, the batches and host syncs, and why a light stopped short."""
+    light, the batches and host syncs, and why a light stopped short.
+
+    Runs under torch.no_grad(): the photon structure (positions,
+    directions, store decisions, RR draws) is frozen at its traced values,
+    as the JAX package's host-built map is; gradients reach the stored
+    powers through `live_photon_powers`."""
     cfg = rt.cfg
     num = cfg.photon_count
     L = cfg.gi_path_length
@@ -518,6 +531,55 @@ def trace_photons(ir: SceneIR, rt, rng, dtype, caustic: bool, global_: bool,
     return maps
 
 
+def live_photon_powers(pm: PhotonMap, ir: SceneIR):
+    """Each stored photon's power (N, 3) replayed from its provenance
+    against the live light and material tables, differentiable in
+    light_intensity, mat_Kd, mat_refl and mat_Tf (the JAX package's
+    live_photon_powers).
+
+    The chain starts at the emitting light's intensity; an EV_KD event
+    multiplies by the hit's Kd, EV_SPEC divides by its mean reflectance,
+    EV_TRANS by its mean Tf (each through photon_bounce_wave's safe
+    divisor), and an EV_MAPPED event takes the recorded pattern sample,
+    which carries no gradient to the table (the pattern replaces the table
+    value). Every operation is the bounce wave's, in its order, and the
+    end divides by power_div as the map build does, so at the traced
+    values the result is the stored `power` bit for bit."""
+    L = pm.prov_mat.shape[1]
+    pw = ir.light_intensity[pm.prov_light]
+
+    def safe(a):
+        return torch.where(a > 0, a, 1.0)[:, None]
+    for step in range(L):
+        mat = pm.prov_mat[:, step]
+        code = pm.prov_code[:, step]
+        base = (code % EV_MAPPED)[:, None]
+        kd, refl = ir.mat_Kd[mat], ir.mat_refl[mat]
+        if pm.prov_samp is not None:
+            mapped = (code >= EV_MAPPED)[:, None]
+            samp = pm.prov_samp[:, step]
+            kd = torch.where(mapped, samp, kd)
+            refl = torch.where(mapped, samp, refl)
+        pw = torch.where(
+            base == EV_KD, kd * pw, torch.where(
+                base == EV_SPEC, pw / safe(refl.mean(-1)), torch.where(
+                    base == EV_TRANS, pw / safe(ir.mat_Tf[mat].mean(-1)),
+                    pw)))
+    # a true division by a device tensor: a CUDA division by a host scalar
+    # multiplies by its reciprocal, which would move the last bit
+    return pw / torch.full((1, 1), pm.power_div, dtype=pw.dtype,
+                           device=pw.device)
+
+
+def with_live_power(pm: Optional[PhotonMap], ir: SceneIR):
+    """The map with `power` a live function of `ir` (live_photon_powers);
+    positions, directions and the grid keep their traced values. `pm`
+    itself when it is None or carries no provenance."""
+    if pm is None or pm.prov_mat is None:
+        return pm
+    return pm._replace(power=live_photon_powers(pm, ir))
+
+
 # ---------------------------------------------------------------------------
 # the irradiance estimate
 # ---------------------------------------------------------------------------
@@ -555,7 +617,9 @@ def _estimate_block(pm: PhotonMap, points, eyev, s, e, width: int, num: int,
     the photon at offset j of the concatenation of its cells' extents. The
     num-th nearest d^2 comes from torch.kthvalue over the table: a
     selection on the card, exact, where the JAX package bisects on counts
-    (the TPU sorts slowly; the two agree within an ulp of r^2)."""
+    (the TPU sorts slowly; the two agree within an ulp of r^2). r^2 is a
+    selection, so it carries no gradient, as the bisection's does not:
+    the query points' gradient flows through the cone weights alone."""
     Rb = points.shape[0]
     dev = points.device
     md2 = max_dist * max_dist
@@ -579,7 +643,7 @@ def _estimate_block(pm: PhotonMap, points, eyev, s, e, width: int, num: int,
     found = n_in.clamp(max=num)
     r2 = torch.full((Rb,), md2, dtype=points.dtype, device=dev)
     if width >= num:
-        kth = torch.kthvalue(d2, num, dim=-1).values
+        kth = torch.kthvalue(d2.detach(), num, dim=-1).values
         r2 = torch.where(n_in >= num, kth, r2)
     sel = d2 <= r2[:, None]                          # inf never selected
     dr = pm.dirs[ridx]
@@ -589,7 +653,12 @@ def _estimate_block(pm: PhotonMap, points, eyev, s, e, width: int, num: int,
     w = 1.0 - torch.sqrt(torch.where(sel, d2, 1.0).clamp(min=0.0)) \
         * (1.0 / (cone_k * max_dist))
     wm = torch.where(sel & front, w, 0.0)
-    pw = pm.power[ridx]
+    # index_select, not pm.power[ridx]: under live photon powers the
+    # backward scatters each slot's cotangent into its photon's row; an
+    # indexing gather's backward sorts every slot's index on the card (an
+    # 800x800 Cornell chunk spent 97% of its device time there),
+    # index_select's adds them atomically
+    pw = pm.power.index_select(0, ridx.reshape(-1)).view(Rb, width, 3)
     irr = torch.stack([(wm * pw[..., i]).sum(-1) for i in range(3)], -1)
     norm = 1.0 / ((1.0 - 2.0 / (3.0 * cone_k)) * math.pi * r2)
     irr = irr * norm[:, None]
@@ -706,27 +775,42 @@ def draw_gather(rng, S: int, R: int, dtype):
                         for s in range(S)])
 
 
-def make_gi_hook(maps, cfg):
+def make_gi_hook(maps, cfg, live_power: bool = False):
     """The RenderStatics.gi_hook that shade_direct calls: the GI addition
     to the ambient channel per shading point (shade_direct clamps it).
-    `maps` is trace_photons' dict."""
+    `maps` is trace_photons' dict.
+
+    With `live_power` the maps' stored powers are a live function of the
+    scene's tables (with_live_power), so pixel gradients reach mat_Kd,
+    mat_refl, mat_Tf and light_intensity through the photon map; forward
+    rendering keeps the stored constants. Such a hook carries `bind(ir)`:
+    the same hook with the live powers computed once from `ir`, which
+    pixel_colors calls once per call so that every level reuses them (the
+    JAX package recomputes them at each hook call; the numbers are the
+    same). Unbound, the hook computes them at each call."""
     pm_caustic = maps.get(CAUSTIC)
     pm_global = maps.get(GLOBAL)
     S = cfg.gi_usteps * cfg.gi_vsteps
 
     def hook(ir, rt, comps, rng):
+        pmg, pmc = pm_global, pm_caustic
+        if live_power:
+            pmg, pmc = with_live_power(pmg, ir), with_live_power(pmc, ir)
         R = comps.p.shape[0]
         add = torch.zeros_like(comps.p)
         gate = (comps.over_Kd > 0.0).any(-1)
-        if cfg.visualize_photon_map and pm_global is not None:
-            add = add + lighting_gi(ir, rt, pm_global, comps, cfg)
-        if cfg.include_final_gather and pm_global is not None:
+        if cfg.visualize_photon_map and pmg is not None:
+            add = add + lighting_gi(ir, rt, pmg, comps, cfg)
+        if cfg.include_final_gather and pmg is not None:
             k = RNG(0, comps.p.device) if rng is None else rng
             add = add + final_gather(
-                ir, rt, pm_global, comps,
+                ir, rt, pmg, comps,
                 draw_gather(k.fold(99), S, R, comps.p.dtype), cfg)
-        if cfg.include_caustics and pm_caustic is not None:
-            add = add + lighting_caustics(ir, rt, pm_caustic, comps, cfg)
+        if cfg.include_caustics and pmc is not None:
+            add = add + lighting_caustics(ir, rt, pmc, comps, cfg)
         return torch.where(gate[:, None], add, 0.0)
 
+    if live_power:
+        hook.bind = lambda ir: make_gi_hook(
+            {m: with_live_power(pm, ir) for m, pm in maps.items()}, cfg)
     return hook

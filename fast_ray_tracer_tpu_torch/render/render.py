@@ -36,6 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from fast_ray_tracer_tpu_torch.ops import mesh
 from fast_ray_tracer_tpu_torch.parallel.checkpoint import (
     load_render_progress, save_render_progress,
 )
@@ -135,20 +136,21 @@ def pixel_colors(ir: SceneIR, rt, cam_rt, px, py, uv, ap, n_samples: int,
     checkpoints each wavefront level (integrator._make_level_fn). `rng`
     is the trace's RNG node (None for a scene that draws nothing).
 
-    Raises NotImplementedError under autograd (a float table requiring
-    grad) for clustered meshes — the mesh kernels have no backward, so
-    the card would drop gradients that the CPU's plain mesh path
-    computes — and for photon GI, whose gradients (live photon powers)
-    are the port's next slice."""
-    grad = torch.is_grad_enabled() and any(
-        t.requires_grad for t in ir.float_tables().values())
-    if grad and ir.meta.use_clusters:
-        raise NotImplementedError("gradients through clustered meshes are "
-                                  "not ported yet")
-    if grad and rt.gi_hook is not None:
-        raise NotImplementedError(
-            "gradients through photon-mapped GI (live photon powers) are "
-            "the next slice of the port")
+    Gradients reach photon-mapped GI through a hook made with
+    `make_gi_hook(..., live_power=True)`, whose live photon powers are
+    computed here once per call, and clustered meshes through the mesh
+    hit's t (integrator.mesh_hit_t). When a vertex table (tri_p1, tri_e1,
+    tri_e2) requires grad, the mesh queries' triangle planes are packed
+    from its current values once per call, so a trained mesh is traced
+    where it now is; the cluster boxes stay those of `rt` (ROADMAP C14)."""
+    bind = getattr(rt.gi_hook, "bind", None)
+    if bind is not None:
+        rt = rt._replace(gi_hook=bind(ir))
+    if ir.meta.use_clusters and (ir.tri_p1.requires_grad
+                                 or ir.tri_e1.requires_grad
+                                 or ir.tri_e2.requires_grad):
+        rt = rt._replace(mesh=rt.mesh._replace(tris=mesh.pack_tris(
+            ir.tri_p1.detach(), ir.tri_e1.detach(), ir.tri_e2.detach())))
     orig, dirs = rays_for_pixels(cam_rt, px, py, uv, ap)
     if buckets is None:
         triple = trace(ir, rt, orig, dirs, path_length, remat=remat, rng=rng)

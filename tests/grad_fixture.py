@@ -74,11 +74,11 @@ class Frame:
         return trender.pixel_colors(ir, self.rt, self.cam, *self.args, 1,
                                     self.depth, **kw)
 
-    def target(self, scale=0.9, offset=0.01, params=None):
+    def target(self, scale=0.9, offset=0.01, params=None, **kw):
         """A target the loss is not flat at: the frame times `scale` plus
         `offset`, as numpy."""
         with torch.no_grad():
-            img, _ = self.colors(params)
+            img, _ = self.colors(params, **kw)
         return img.numpy() * scale + offset
 
     def port_loss(self, params, target, **kw):
@@ -95,17 +95,22 @@ class Frame:
             k: (torch.zeros_like(self.params[k]) if g is None else g).numpy()
             for k, g in zip(keys, gs)}
 
-    def jax_grads(self, target, **kw):
-        """(loss, {key: gradient}) of the JAX package, in one jit."""
+    def jax_loss(self, target, key=None, **kw):
+        """The JAX package's MSE as a function of its parameters; `key`
+        is its trace's PRNG key (None for a scene that draws nothing)."""
         jt = jnp.asarray(target)
 
         def loss(p):
             img = jrender.pixel_colors(
                 jtrain.merge_params(p, self.jstatic), self.jrt, self.jcam,
-                *self.np_args, 1, self.depth, None, **kw)
+                *self.np_args, 1, self.depth, key, **kw)
             return jnp.mean((img - jt) ** 2)
+        return loss
 
-        value, grads = jax.jit(jax.value_and_grad(loss))(self.jparams)
+    def jax_grads(self, target, key=None, **kw):
+        """(loss, {key: gradient}) of the JAX package, in one jit."""
+        value, grads = jax.jit(jax.value_and_grad(
+            self.jax_loss(target, key, **kw)))(self.jparams)
         return float(value), {k: np.array(v) for k, v in grads.items()}
 
 

@@ -294,8 +294,9 @@ def test_construct_ppm():
                                     "aperture"])
 def test_unported_features_raise(change):
     """What raised before the stochastic slice renders now, from a seed
-    and the same for the same seed; what of it is still unported,
-    gradients through photon GI, raises NotImplementedError."""
+    and the same for the same seed; gradients through photon GI, which
+    raised before the GI gradients, come out finite and non-zero, also
+    in the light intensity through the live photon powers alone."""
     from fast_ray_tracer_tpu_torch.render import photon as tph
     from fast_ray_tracer_tpu_torch.render import render as trender
     sc = tdemo.glass_spheres(8, 4)
@@ -317,17 +318,30 @@ def test_unported_features_raise(change):
                                 seed=2))
     if change != "photon_gi":
         return
+    from fast_ray_tracer_tpu_torch.sampling.rng import RNG
     ir = tcomp.compile_scene(sc, dtype=torch.float64, device="cpu")
-    rt = tintg.build_statics(ir, sc.config)._replace(
-        gi_hook=tph.make_gi_hook({}, sc.config))
+    rt = tintg.build_statics(ir, sc.config)
+    maps = tph.trace_photons(ir, rt, RNG(2), torch.float64, caustic=False,
+                             global_=True)
+    rt = rt._replace(gi_hook=tph.make_gi_hook(maps, sc.config,
+                                              live_power=True))
     cam_rt = tcam.build_camera(sc.camera, dtype=torch.float64, device="cpu")
     ir.mat_Kd.requires_grad_(True)
-    n = 4
-    with pytest.raises(NotImplementedError, match="next slice"):
-        trender.pixel_colors(ir, rt, cam_rt, torch.arange(n),
-                             torch.zeros(n, dtype=torch.int64),
-                             torch.full((n, 2), 0.5, dtype=torch.float64),
-                             torch.zeros((n, 2), dtype=torch.float64), 1, 5)
+    ir.light_intensity.requires_grad_(True)
+    n = 8
+    img, _ = trender.pixel_colors(
+        ir, rt, cam_rt, torch.arange(n), torch.full((n,), 3),
+        torch.full((n, 2), 0.5, dtype=torch.float64),
+        torch.zeros((n, 2), dtype=torch.float64), 1, 5, rng=RNG(3))
+    g_kd, g_li = torch.autograd.grad(img.sum(), [ir.mat_Kd,
+                                                 ir.light_intensity])
+    for g in (g_kd, g_li):
+        assert bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0.0
+    pm = maps[tph.GLOBAL]
+    live = tph.live_photon_powers(pm, ir)
+    assert torch.equal(live.detach(), pm.power)
+    g_pw, = torch.autograd.grad(live.sum(), [ir.light_intensity])
+    assert float(g_pw.abs().sum()) > 0.0
 
 
 @pytest.mark.parametrize("change", ["area_light", "texture", "xyz"])

@@ -8,7 +8,9 @@
   next step; a trainer killed at step 7 with saves every 3 steps resumes
   from step 6 onto the uninterrupted 12-step trajectory; a render resumed
   from a rewound snapshot is the uninterrupted render.
-- The mesh guard: pixel_colors refuses gradients through clustered meshes.
+- The mesh guard, now a training check: Adam steps through a clustered
+  mesh (Kd and vertices requiring grad) run, move the vertices and lower
+  the loss, and the no-grad forward still renders the scene's frame.
 - Fault C9: the port's `read_png` against the JAX package's (Pillow) on
   palette, Adam7-interlaced, 1/2/4-bit and 16-bit alpha-carrying PNGs,
   bitwise; other formats through Pillow in `read_image`.
@@ -208,8 +210,11 @@ def test_cli_checkpoint(tmp_path):
 # ---------------------------------------------------------------------------
 
 def test_mesh_guard():
-    """Clustered meshes: a float table that requires grad raises (the
-    mesh kernels have no backward); the forward without grad renders."""
+    """Clustered meshes under autograd, which raised before the mesh
+    gradients: Adam steps over the Kd and vertex tables run, move the
+    torus's vertices and lower the loss against a target rendered with
+    its Kd darkened; the forward without grad renders the scene's
+    frame."""
     scene = tdemo.mesh_torus(8, 4, segments=(48, 24))
     ir = tcomp.compile_scene(scene, dtype=torch.float64, device="cpu")
     assert ir.meta.use_clusters
@@ -220,12 +225,30 @@ def test_mesh_guard():
             torch.full((n, 2), 0.5, dtype=torch.float64),
             torch.zeros((n, 2), dtype=torch.float64))
     params, static = ttrain.split_params(ir)
-    with pytest.raises(NotImplementedError, match="clustered meshes"):
-        trender.pixel_colors(ttrain.merge_params(params, static), rt, cam,
-                             *args, 1, 5)
-    init, step = ttrain.make_train_step(rt, cam, static, 1, 5)
-    with pytest.raises(NotImplementedError, match="clustered meshes"):
-        step(init(params), *args, torch.zeros((n, 3), dtype=torch.float64))
+    dark = dict(params, mat_Kd=params["mat_Kd"].detach() * 0.6)
+    with torch.no_grad():
+        target, _ = trender.pixel_colors(ttrain.merge_params(dark, static),
+                                         rt, cam, *args, 1, 5)
+    # Adam moves the Kd and the vertices at 1e-4; the rest stay frozen (a
+    # first step would move opaque materials' mat_Tr off 0 and switch on
+    # the dissolve multiply). A step of 1e-3 on every vertex entry with a
+    # gradient moves a pixel's ray or shadow ray across a triangle edge
+    # at this resolution and raises the loss.
+    for k, p in params.items():
+        p.requires_grad_(k in ("mat_Kd", "tri_p1", "tri_e1", "tri_e2"))
+    init, step = ttrain.make_train_step(
+        rt, cam, static, 1, 5, optimizer=lambda ps: ttrain.adam(ps, 1e-4))
+    state = init(params)
+    p1 = params["tri_p1"].detach().clone()
+    losses = []
+    for _ in range(3):
+        state, loss, ovf = step(state, *args, target)
+        losses.append(float(loss))
+        assert not bool(ovf)
+    assert np.all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    assert not torch.equal(params["tri_p1"].detach(), p1)
+    params = {k: torch.as_tensor(getattr(ir, k)).clone().requires_grad_(True)
+              for k in params}
     with torch.no_grad():
         img, ovf = trender.pixel_colors(
             ttrain.merge_params(params, static), rt, cam, *args, 1, 5)
