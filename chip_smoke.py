@@ -165,6 +165,36 @@ Phases, one line each or more:
      the held pixels moves the block's vertices; on the moved mesh the
      closest kernel equals its plain version bitwise on their camera
      rays.
+ 33. world of one: render_scene(glass_spheres(800, 400), mesh=...) on a
+     one-rank NCCL process group in this process: phase 4's canvas bit
+     for bit and its compaction launches; then the group is shut down.
+ 34-37. two ranks sharing the card: one spawn of RANKS worker processes
+     (this script with --rank), both on cuda:0, joined over gloo through
+     a file:// store, each with its own time limit (a rank that fails or
+     does not finish fails the script):
+ 34. the flagship in one chunk: both canvases bitwise phase 4's, both
+     compaction kernels launched on each rank, the warm wall of each rank
+     (median of --reps; two ranks sharing one card, not a scaling
+     figure);
+ 35. mesh_torus(600, 240): both canvases bitwise phase 8's, both mesh
+     kernels launched on each rank;
+ 36. cornell_box(800, 800) at SEED: the photon maps' sha256 equal on the
+     ranks, the canvases equal across ranks, finite, no exact chunk, the
+     same seed twice bitwise, all four kernels launched on each rank, the
+     wall;
+ 37. phase 19's train step (800x400, remat="level", its buckets) with
+     the batch split over the ranks: the parameters after one step
+     bitwise across ranks, the all-reduced gradients within
+     TRAIN_STRIP_RTOL of each field's largest |g| of phase 19's first
+     step, no overflow, the compaction launches of each rank's forward
+     and backward, the step ms;
+ 38. the flagship in a fresh bucket cache, cold (probe, entry written)
+     and warm (no probe), bitwise; then the command line's --profile on
+     soft_textured.yml: the phase lines, and a trace naming the kernels
+     of both sources. The whole script keeps its bucket cache in a
+     temporary FRT_COMPILE_CACHE, so a frame after the first of its
+     scene (the warm walls of phases 4, 8, 11 and others) skips the
+     probe.
 Then the compaction's device time per call from torch.profiler, one
 profiled warm train step, one profiled warm showcase and soft frame each
 (device events, device busy time, idle share against the warm wall, and
@@ -174,8 +204,9 @@ and the irradiance estimate's device time and share) and the middle
 chunk of the Cornell forward+backward (device events only: kernel
 launches, busy time, idle share, top kernels), after every
 wall-clock phase (the profiler leaves launches slower); the card's
-nvidia-smi line, a JSON line of per-kernel results and, last, the device
-JSON line. Any failure raises and exits non-zero.
+nvidia-smi line, a JSON line of per-kernel results (with each kernel's
+launches per rank in phases 34-37) and, last, the device JSON line. Any
+failure raises and exits non-zero.
 --reps sets the number of warm frames of each render. With --profile, the
 level-0 compaction calls and one warm frame of each render run under
 torch.profiler, and their per-kernel device-time tables go to PATH.
@@ -187,6 +218,7 @@ import hashlib
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -204,6 +236,10 @@ from fast_ray_tracer_tpu_torch.io.ppm import (
 from fast_ray_tracer_tpu_torch.ops import compact, mesh, patterns
 from fast_ray_tracer_tpu_torch.ops.intersect import neutralize_rays
 from fast_ray_tracer_tpu_torch.ops.vec import normalize
+from fast_ray_tracer_tpu_torch.parallel import distributed
+from fast_ray_tracer_tpu_torch.parallel.mesh import (
+    replicate_scene, shard_pixel_batch,
+)
 from fast_ray_tracer_tpu_torch.parallel.train import (
     adam, make_train_step, merge_params, split_params,
 )
@@ -229,6 +265,7 @@ from fast_ray_tracer_tpu_torch.scene.demo import (
 )
 from fast_ray_tracer_tpu_torch.scene.model import ApertureDesc, replace
 from fast_ray_tracer_tpu_torch.scene.ir import PAT_UV_TEXTURE, SceneIR, SceneMeta
+from fast_ray_tracer_tpu_torch.utils.profiling import PhaseTimer, TRACE_FILE
 
 W, H = 800, 400
 RAYS_PER_PIXEL = 126      # 63 trace + 63 shadow rays (depth 5, 2 children)
@@ -453,13 +490,19 @@ def compact_device_ms(device, n0, b0, event_ms):
     return ms
 
 
-def frame(device, compaction="auto", stats=None, scene=None, seed=None):
+def frame(device, compaction="auto", stats=None, scene=None, seed=None,
+          pmesh=None, timer=None):
+    """One render_scene call in float32, the whole frame one chunk, and its
+    wall; with a mesh (`pmesh`), after a barrier of its ranks."""
     scene = glass_spheres(W, H) if scene is None else scene
     cam = scene.camera
+    if pmesh is not None:
+        torch.distributed.barrier(group=pmesh.group)
     t0 = time.perf_counter()
     canvas = render_scene(scene, dtype=torch.float32, device=device,
                           chunk_pixels=cam.width * cam.height,
-                          compaction=compaction, stats=stats, seed=seed)
+                          compaction=compaction, stats=stats, seed=seed,
+                          mesh=pmesh, timer=timer)
     torch.cuda.synchronize()
     return canvas, time.perf_counter() - t0
 
@@ -1429,6 +1472,9 @@ def train_steps(device, reps, remat, rows=None):
     state, loss, ovf = step(state, *ts.args, ts.target,
                             between=lambda: fwd.update(compact.LAUNCHES))
     torch.cuda.synchronize()
+    # the first step's gradients, for the two-rank step of phase 37
+    grads = {k: torch.zeros_like(p) if p.grad is None
+             else p.grad.detach().clone() for k, p in params.items()}
     total = dict(compact.LAUNCHES)
     bwd = {k: total[k] - fwd[k] for k in total}
     if any(mesh.LAUNCHES.values()):
@@ -1462,7 +1508,7 @@ def train_steps(device, reps, remat, rows=None):
             b < a for a, b in zip(losses, losses[1:])):
         raise AssertionError(f"losses not finite and falling: {losses}")
     return {"ms": ms, "peak_gib": peak, "fwd": fwd, "bwd": bwd,
-            "losses": losses}
+            "losses": losses, "grads": grads}
 
 
 def profile_train_step(device, step_ms, remat="level"):
@@ -2173,6 +2219,350 @@ def check_fb_adam(cg):
         raise AssertionError("mesh closest != plain on the moved mesh")
 
 
+# ---------------------------------------------------------------------------
+# the multi-device slice: a world of one over NCCL, two ranks sharing the
+# card over gloo, the bucket cache and --profile
+# ---------------------------------------------------------------------------
+
+# the ranks of phases 34-37: two processes on cuda:0, joined over gloo
+# through a file:// store (NCCL refuses two ranks on one GPU); a rank
+# that has not finished within RANK_TIMEOUT_S fails the script
+RANKS = 2
+RANK_TIMEOUT_S = 420
+
+
+def world_of_one(device, want, want_launches):
+    """33: the flagship through render_scene on a one-rank NCCL mesh, in
+    this process: phase 4's canvas bitwise and its compaction launches."""
+    with tempfile.TemporaryDirectory(prefix="frt_nccl_") as tmp:
+        distributed.init(f"file://{tmp}/store", 1, 0, local_device_ids=[0])
+        try:
+            pm = distributed.global_mesh()
+            compact.LAUNCHES.update(compact=0, expand=0)
+            canvas, t = frame(device, pmesh=pm)
+            launches = dict(compact.LAUNCHES)
+            backend = torch.distributed.get_backend(pm.group)
+        finally:
+            distributed.shutdown()
+    same = np.array_equal(canvas, want)
+    log("world-of-one", f"{W}x{H} flagship on a mesh of 1 rank over "
+        f"{backend}: {t:.3f} s (probe included), launches {launches} (phase "
+        f"4: {want_launches}), bitwise phase 4's canvas={same}")
+    if not same or launches != want_launches:
+        raise AssertionError("the world of one differs from phase 4")
+
+
+def photon_maps_hash(device, scene):
+    """sha256 over every tensor and field of the scene's photon maps, traced
+    as render_scene traces them at SEED."""
+    cfg = scene.config
+    ir = compile_scene(scene, dtype=torch.float32, device=device)
+    maps = photon.trace_photons(
+        ir, build_statics(ir, cfg), RNG(SEED, device).fold(PHOTON_FOLD),
+        torch.float32, caustic=cfg.include_caustics,
+        global_=cfg.include_final_gather)
+    h = hashlib.sha256()
+    for key in sorted(maps):
+        pm = maps[key]
+        fields = {} if pm is None else pm._asdict()
+        for name, v in fields.items():
+            h.update(name.encode())
+            h.update(v.cpu().numpy().tobytes() if torch.is_tensor(v)
+                     else repr(v).encode())
+    return h.hexdigest()
+
+
+def rank_worker(rank, store, out, reps):
+    """One of the RANKS processes of phases 34-37 (chip_smoke.py --rank):
+    renders on its shards, steps on its shard, and leaves its canvases,
+    gradients and a JSON of its results in `out` for the parent."""
+    device = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.init(store, RANKS, rank, local_device_ids=[0],
+                     backend="gloo")
+    pm = distributed.global_mesh()
+    res = {}
+    try:
+        # 34. the flagship
+        _reset_launches()
+        canvas, cold = frame(device, pmesh=pm)
+        res["flagship_launches"] = _launch_counts()
+        res["flagship_walls"] = [frame(device, pmesh=pm)[1]
+                                 for _ in range(reps)]
+        np.save(os.path.join(out, f"flagship_{rank}.npy"), canvas)
+        log("ranks-flagship", f"rank {rank}: first call {cold:.3f} s, "
+            f"launches {res['flagship_launches']}")
+        # 35. the mesh frame
+        _reset_launches()
+        canvas, cold = frame(device, scene=mesh_torus(MW, MH), pmesh=pm)
+        res["mesh_launches"] = _launch_counts()
+        res["mesh_walls"] = [frame(device, scene=mesh_torus(MW, MH),
+                                   pmesh=pm)[1] for _ in range(reps)]
+        np.save(os.path.join(out, f"mesh_{rank}.npy"), canvas)
+        # 36. the Cornell GI frame, twice at SEED
+        scene = cornell_box(CW, CH)
+        res["photon_maps_sha256"] = photon_maps_hash(device, scene)
+        _reset_launches()
+        stats = {}
+        canvas, cold = frame(device, scene=scene, seed=SEED, stats=stats,
+                             pmesh=pm)
+        res["cornell_launches"] = _launch_counts()
+        res["cornell_stats"] = {k: stats[k] for k in
+                                ("buckets", "escalations", "exact_chunks")}
+        again, wall = frame(device, scene=scene, seed=SEED, pmesh=pm)
+        res["cornell_first_s"], res["cornell_wall"] = cold, wall
+        res["cornell_same_seed"] = bool(np.array_equal(canvas, again))
+        res["cornell_finite"] = bool(np.isfinite(canvas).all())
+        np.save(os.path.join(out, f"cornell_{rank}.npy"), canvas)
+        del canvas, again
+        # 37. phase 19's train step, the batch split over the ranks
+        ts = TrainSet(device)
+        params = ts.fresh()
+        groups = [{"params": [params[k] for k in TRAIN_TABLES]},
+                  {"params": [p for k, p in params.items()
+                              if k not in TRAIN_TABLES], "lr": 0.0}]
+        init, step = make_train_step(ts.rt, ts.cam, ts.static, 1, ts.depth,
+                                     remat="level", buckets=ts.buckets,
+                                     optimizer=lambda ps: adam(groups),
+                                     mesh=pm)
+        state = replicate_scene(pm, init(params))
+        batch = shard_pixel_batch(pm, *ts.args, ts.target)
+        _reset_launches()
+        fwd = {}
+        state, loss, ovf = step(state, *batch,
+                                between=lambda: fwd.update(compact.LAUNCHES))
+        torch.cuda.synchronize()
+        total = dict(compact.LAUNCHES)
+        res["train_fwd"] = fwd
+        res["train_bwd"] = {k: total[k] - fwd[k] for k in total}
+        res["train_loss"], res["train_overflow"] = float(loss), bool(ovf)
+        torch.save({"grads": {k: p.grad.detach().cpu()
+                              for k, p in params.items()},
+                    "params": {k: p.detach().cpu()
+                               for k, p in params.items()}},
+                   os.path.join(out, f"train_{rank}.pt"))
+        times = []
+        for _ in range(reps):
+            torch.distributed.barrier()
+            t0 = time.perf_counter()
+            state, loss, ovf = step(state, *batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        res["train_ms"] = [t * 1e3 for t in times]
+        # one more step under torch.profiler, after the timed ones: this
+        # rank's kernels and device busy time against its step's wall
+        from torch.profiler import ProfilerActivity, profile
+        torch.distributed.barrier()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(state, *batch)
+            torch.cuda.synchronize()
+            t = time.perf_counter() - t0
+        kernels, copies, busy, top = profile_summary(prof)
+        res["train_profile"] = {"kernels": kernels, "copies": copies,
+                                "busy_s": busy, "profiled_s": t, "top": top}
+    finally:
+        distributed.shutdown()
+    with open(os.path.join(out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def run_ranks(reps):
+    """Start the RANKS worker processes and wait for both (each within
+    RANK_TIMEOUT_S); a rank that fails or does not finish kills both and
+    fails the script. Returns (the results' directory, each rank's JSON),
+    the directory removed by the caller."""
+    tmp = tempfile.mkdtemp(prefix="frt_ranks_")
+    procs = []
+    try:
+        for r in range(RANKS):
+            logf = open(os.path.join(tmp, f"rank{r}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+                 "--store", f"file://{tmp}/store", "--out", tmp, "--reps",
+                 str(reps)], stdout=logf, stderr=subprocess.STDOUT), logf,
+                time.monotonic() + RANK_TIMEOUT_S))
+        failed = []
+        for r, (p, logf, deadline) in enumerate(procs):
+            try:
+                rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                rc = f"no end within {RANK_TIMEOUT_S} s"
+            logf.close()
+            with open(os.path.join(tmp, f"rank{r}.log")) as f:
+                for line in f.read().splitlines():
+                    print(f"[rank {r}] {line}", flush=True)
+            if rc != 0:
+                failed.append(f"rank {r}: {rc}")
+        if failed:
+            raise AssertionError(f"a rank failed: {failed}")
+    finally:
+        for p, logf, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            logf.close()
+    results = []
+    for r in range(RANKS):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            results.append(json.load(f))
+    return tmp, results
+
+
+def two_ranks(reps, flagship, mcanvas, train_grads):
+    """34-37: the two ranks' results against phases 4, 8 and 19, and
+    against each other. Returns each kernel's launches per rank."""
+    torch.cuda.empty_cache()
+    tmp, res = run_ranks(reps)
+    try:
+        def canvases(name):
+            return [np.load(os.path.join(tmp, f"{name}_{r}.npy"))
+                    for r in range(RANKS)]
+
+        def walls(key):
+            return [statistics.median(x[key]) for x in res]
+
+        # 34
+        same = [np.array_equal(c, flagship) for c in canvases("flagship")]
+        fl = [x["flagship_launches"] for x in res]
+        log("ranks-flagship", f"{W}x{H} flagship, {RANKS} ranks sharing "
+            f"one card over gloo, one chunk: launches per rank {fl}; "
+            f"bitwise phase 4's canvas {same}; warm wall per rank "
+            f"{walls('flagship_walls')} s (median of {reps}; 2 ranks sharing "
+            f"one card, not a scaling figure)")
+        if not all(same) or min(min(x["compact"], x["expand"])
+                                for x in fl) < 1:
+            raise AssertionError("the two-rank flagship differs from phase 4 "
+                                 "or a rank launched no compaction")
+        # 35
+        same = [np.array_equal(c, mcanvas) for c in canvases("mesh")]
+        ml = [x["mesh_launches"] for x in res]
+        log("ranks-mesh", f"{MW}x{MH} mesh_torus, {RANKS} ranks: launches "
+            f"per rank {ml}; bitwise phase 8's canvas {same}; warm wall per "
+            f"rank {walls('mesh_walls')} s")
+        if not all(same) or min(min(x.values()) for x in ml) < 1:
+            raise AssertionError("the two-rank mesh frame differs from "
+                                 "phase 8 or a rank skipped a kernel")
+        # 36
+        cs = canvases("cornell")
+        cl = [x["cornell_launches"] for x in res]
+        hashes = {x["photon_maps_sha256"] for x in res}
+        across = all(np.array_equal(c, cs[0]) for c in cs)
+        log("ranks-cornell", f"{CW}x{CH} Cornell GI at seed {SEED}, {RANKS} "
+            f"ranks: photon maps' sha256 {sorted(hashes)}; canvases equal "
+            f"across ranks {across}; the same seed twice bitwise "
+            f"{[x['cornell_same_seed'] for x in res]}; finite "
+            f"{[x['cornell_finite'] for x in res]}; stats "
+            f"{[x['cornell_stats'] for x in res]}; launches per rank {cl}; "
+            f"first call {[round(x['cornell_first_s'], 4) for x in res]} s, "
+            f"warm wall {[round(x['cornell_wall'], 4) for x in res]} s")
+        if len(hashes) != 1 or not across or not all(
+                x["cornell_same_seed"] and x["cornell_finite"]
+                and not x["cornell_stats"]["exact_chunks"] for x in res):
+            raise AssertionError("the two-rank Cornell frame is not the same "
+                                 "on both ranks, finite and deterministic")
+        if min(min(x.values()) for x in cl) < 1:
+            raise AssertionError(f"a rank skipped a kernel of the GI path: "
+                                 f"{cl}")
+        # 37
+        tr = [torch.load(os.path.join(tmp, f"train_{r}.pt"))
+              for r in range(RANKS)]
+        same = all(torch.equal(tr[0]["params"][k], t["params"][k])
+                   for t in tr for k in tr[0]["params"])
+        want = {k: g.cpu() for k, g in train_grads.items()}
+        diff = _grad_diff(tr[0]["grads"], want)
+        worst = max(diff, key=diff.get)
+        ovf = [x["train_overflow"] for x in res]
+        log("ranks-train", f"phase 19's step ({W}x{H}, remat='level'), the "
+            f"batch split over {RANKS} ranks: launches per rank forward "
+            f"{[x['train_fwd'] for x in res]}, backward "
+            f"{[x['train_bwd'] for x in res]}; parameters bitwise across "
+            f"ranks {same}; all-reduced gradients vs phase 19's first step: "
+            f"largest share of a field's max |g| {diff[worst]:.3e} ({worst}); "
+            f"loss {[x['train_loss'] for x in res]}, overflow {ovf}; step "
+            f"{walls('train_ms')} ms per rank (median of {reps})")
+        for r, x in enumerate(res):
+            p = x["train_profile"]
+            step_s = statistics.median(x["train_ms"]) / 1e3
+            log("ranks-train-profile", f"rank {r}, one profiled step: "
+                f"{p['kernels']} kernel launches and {p['copies']} "
+                f"copies/memsets; profiled wall {p['profiled_s']:.4f} s, "
+                f"this rank's device busy {p['busy_s']:.4f} s; unprofiled "
+                f"step {step_s:.4f} s -> its idle share "
+                f"{1 - p['busy_s'] / step_s:.3f}; top operators by device "
+                f"time: {p['top']}")
+        if not same or any(ovf) or diff[worst] > TRAIN_STRIP_RTOL:
+            raise AssertionError("the two-rank train step differs")
+        if min(min(x["train_fwd"].values()) for x in res) < 1 or min(
+                min(x["train_bwd"].values()) for x in res) < 1:
+            raise AssertionError("a rank's train step skipped a compaction "
+                                 "kernel")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    def per_rank(key, name):
+        return [x[key].get(name, 0) for x in res]
+
+    return {name: {"launches_2rank_flagship":
+                   per_rank("flagship_launches", name),
+                   "launches_2rank_mesh": per_rank("mesh_launches", name),
+                   "launches_2rank_cornell": per_rank("cornell_launches", name),
+                   "launches_2rank_train_fwd": per_rank("train_fwd", name),
+                   "launches_2rank_train_bwd": per_rank("train_bwd", name)}
+            for name in ("compact", "expand", "mesh_closest", "mesh_shadow")}
+
+
+def cache_and_profile(device):
+    """38: the flagship in a fresh bucket cache, cold (probe, entry
+    written) and warm (hit, no probe), bitwise; then the command line's
+    --profile on soft_textured.yml: the phase lines and a trace naming
+    both kernel sources' kernels."""
+    prev = os.environ["FRT_COMPILE_CACHE"]
+    runs = []
+    with tempfile.TemporaryDirectory(prefix="frt_cache_") as cache:
+        os.environ["FRT_COMPILE_CACHE"] = cache
+        try:
+            for _ in range(2):
+                timer = PhaseTimer()
+                canvas, t = frame(device, timer=timer)
+                runs.append((canvas, t, {p["phase"]: p["seconds"]
+                                         for p in timer.phases}))
+            written = os.path.exists(os.path.join(cache, "frt_buckets.json"))
+        finally:
+            os.environ["FRT_COMPILE_CACHE"] = prev
+    (cold, cold_t, cold_ph), (warm, warm_t, warm_ph) = runs
+    same = np.array_equal(cold, warm)
+    log("cache", f"{W}x{H} flagship in a fresh cache: cold {cold_t:.4f} s "
+        f"(probe {cold_ph.get('probe_buckets', float('nan')):.4f} s, entry "
+        f"written {written}), warm {warm_t:.4f} s (probe run "
+        f"{'probe_buckets' in warm_ph}); bitwise {same}; phases cold "
+        f"{cold_ph}, warm {warm_ph}")
+    if not (same and written and "probe_buckets" in cold_ph) \
+            or "probe_buckets" in warm_ph:
+        raise AssertionError("the bucket cache did not skip the probe")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="frt_profile_") as prof:
+        t0 = time.perf_counter()
+        cli_main([str(SOFT_DIR / "soft_textured.yml"), "-o",
+                  os.path.join(OUT_DIR, "soft_profiled"), "--chunk",
+                  str(W * H), "--quiet", "--profile", prof])
+        secs = time.perf_counter() - t0
+        path = os.path.join(prof, TRACE_FILE)
+        size = os.path.getsize(path)
+        with open(path) as f:
+            text = f.read()
+    # kernel names, mangled or not: both libraries' kernels, both queries
+    names = {k: k in text for k in ("compact_kernel", "expand_kernel",
+                                    "pair_kernel", "ClosestQ", "ShadowQ")}
+    log("profile-cli", f"--profile on soft_textured.yml: {secs:.2f} s, "
+        f"trace {size / 2**20:.1f} MiB, kernels named {names}")
+    if not all(names.values()):
+        raise AssertionError("the --profile trace misses a kernel")
+
+
 def profile_summary(prof, rows=None):
     """(kernel launches, copies and memsets, device busy s, the top eight
     aten operators by device time as text) of a torch.profiler run;
@@ -2265,11 +2655,21 @@ def main():
                     help="write torch.profiler's per-kernel tables of the "
                     "level-0 compaction calls and one warm frame of each "
                     "render here")
+    ap.add_argument("--rank", type=int, default=None,
+                    help=argparse.SUPPRESS)    # phases 34-37's workers
+    ap.add_argument("--store", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if args.rank is not None:
+        return rank_worker(args.rank, args.store, args.out, args.reps)
+    started = time.perf_counter()
     device = torch.device("cuda", 0)
+    # the bucket cache of every render in this run, its own
+    cache_dir = tempfile.mkdtemp(prefix="frt_cache_")
+    os.environ["FRT_COMPILE_CACHE"] = cache_dir
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2441,6 +2841,17 @@ def main():
     check_fb_adam(cg)
     log("fwd-bwd", f"phases 28-32 took {time.perf_counter() - t0:.1f} s")
 
+    # 33-38. the multi-device path: the flagship on a world of one over
+    # NCCL; two ranks sharing the card over gloo (the flagship, the mesh
+    # frame, the Cornell frame and phase 19's train step, split over the
+    # ranks); the bucket cache cold and warm; the command line's --profile
+    t0 = time.perf_counter()
+    world_of_one(device, canvas, launches)
+    ranked = two_ranks(args.reps, canvas, mcanvas, tstats["level"]["grads"])
+    cache_and_profile(device)
+    log("multi-device", f"phases 33-38 took {time.perf_counter() - t0:.1f} "
+        f"s")
+
     kstats["compact"]["device_ms"] = compact_device_ms(
         device, W * H, b0, kstats["compact"]["ms"])
     profile_showcase(device, show_wall)
@@ -2470,7 +2881,7 @@ def main():
                      "launches_cornell": claunches[key],
                      "launches_cornell_fwd_bwd_fwd": fb["fwd"][key],
                      "launches_cornell_fwd_bwd_bwd": fb["bwd"][key],
-                     **kstats[key]})
+                     **ranked[key], **kstats[key]})
     for name, key, replaces in (
             ("mesh_closest", "closest",
              "fast_ray_tracer_tpu/ops/mesh_pallas.py:262"),
@@ -2485,7 +2896,10 @@ def main():
                      "launches_cornell": claunches[f"mesh_{key}"],
                      "launches_cornell_fwd_bwd_fwd": fb["fwd"][f"mesh_{key}"],
                      "launches_cornell_fwd_bwd_bwd": fb["bwd"][f"mesh_{key}"],
-                     **mstats[key]})
+                     **ranked[f"mesh_{key}"], **mstats[key]})
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    log("done", f"the whole script took {time.perf_counter() - started:.1f} "
+        f"s")
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

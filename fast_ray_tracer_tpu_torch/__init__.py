@@ -31,7 +31,17 @@ GI (live photon powers, `render/photon.make_gi_hook(live_power=True)`);
 `parallel/train.py` splits a SceneIR into parameters and takes Adam
 steps, `parallel/checkpoint.py` saves and resumes training and renders.
 
-There is no multi-device render yet.
+Many devices: one process per device over torch.distributed
+(`parallel/distributed.init`, under `torchrun` or with an explicit store;
+NCCL by default, gloo through host memory). `render_scene(mesh=...)`
+splits each chunk's pixels over the ranks, each tracing its shard with
+its own kernel launches, and every rank gets the whole canvas;
+`make_train_step(mesh=...)` sums the gradients over the ranks before the
+same Adam step on each (`parallel/mesh.py`: `make_mesh`,
+`shard_pixel_batch`, `replicate_scene`). A single-device render caches
+its bucket calibration on disk ($FRT_COMPILE_CACHE, default
+~/.cache/frt_torch); the command line's `--profile DIR` writes a
+torch.profiler trace and prints the render's phases.
 
 Importing the package loads nothing heavy: import the submodules you use,
 e.g. `fast_ray_tracer_tpu_torch.render.render.render_scene`.

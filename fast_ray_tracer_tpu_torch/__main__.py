@@ -9,6 +9,10 @@ STEM.png (STEM defaults to the scene's `output.file`). Scenes that need
 random numbers (jittered cameras or lights, shaped apertures, photon GI)
 draw them from `--seed` (default 0): the same seed writes the same files.
 
+With `--profile DIR` the render runs under torch.profiler (a Chrome
+trace in DIR/trace.json) and the render's phases are printed as JSON
+lines.
+
 `main(argv)` parses the arguments and loads the scene; `render_to_files`
 is the rest, for a caller that holds a SceneDesc.
 """
@@ -17,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import sys
+import time
 from typing import Optional
 
 import numpy as np
@@ -27,7 +32,7 @@ from fast_ray_tracer_tpu_torch.render.render import render_scene
 from fast_ray_tracer_tpu_torch.scene.model import SceneDesc, replace
 from fast_ray_tracer_tpu_torch.scene.yaml_loader import load_scene
 from fast_ray_tracer_tpu_torch.utils.profiling import (
-    PhaseTimer, rays_per_second,
+    PhaseTimer, rays_per_second, trace_context,
 )
 
 
@@ -36,31 +41,40 @@ def render_to_files(scene: SceneDesc, out: str, dtype=None,
                     quiet: bool = False, ppm: bool = True, png: bool = True,
                     stats: Optional[dict] = None,
                     checkpoint: Optional[str] = None,
-                    seed: Optional[int] = None) -> np.ndarray:
+                    seed: Optional[int] = None,
+                    profile: Optional[str] = None) -> np.ndarray:
     """Render `scene` on `device` and write `<out>.ppm` and `<out>.png`
     (each unless switched off); returns the canvas. `dtype` defaults to
     float32 on the card and float64 on the CPU; `chunk_pixels` to the
     whole frame (render_scene still cuts chunks to its shadow-ray cap).
     `stats`, if a dict, receives render_scene's bucket statistics;
     `checkpoint` is render_scene's snapshot path (resume after a kill);
-    `seed` render_scene's seed."""
+    `seed` render_scene's seed. With `profile` (a directory) the render
+    runs under `trace_context(profile)` and its phases are printed as
+    JSON lines. Unless `quiet`, each chunk prints its progress."""
     device = torch.device(device)
     if dtype is None:
         dtype = torch.float64 if device.type == "cpu" else torch.float32
     cam = scene.camera
     W, H = cam.width, cam.height
     timer = PhaseTimer()
-    with timer.phase("render"):
+    t0 = time.perf_counter()
+    with timer.phase("render"), trace_context(profile):
         canvas = render_scene(scene, dtype=dtype,
                               chunk_pixels=chunk_pixels or W * H,
                               device=device, stats=stats,
-                              checkpoint_path=checkpoint, seed=seed)
-    wall = timer.total()
+                              checkpoint_path=checkpoint, seed=seed,
+                              timer=timer, progress=not quiet)
+    wall = time.perf_counter() - t0
     if not quiet:
         rays = rays_per_second(W * H, cam.usteps * cam.vsteps, 2, wall)
         print(f"rendered {W}x{H} in {wall:.2f}s "
               f"({W * H / max(wall, 1e-9):,.0f} px/s, {rays:,.0f} rays/s "
               f"lower-bound) on {device.type}")
+    if profile:
+        timer.report()
+        if not quiet:
+            print(f"profiler trace in {profile}")
     if ppm:
         write_ppm(canvas, out)
         if not quiet:
@@ -102,7 +116,11 @@ def main(argv=None, stats: Optional[dict] = None) -> int:
                     help="seed of the random numbers of a stochastic scene "
                     "(default 0; a deterministic scene draws none)")
     ap.add_argument("--quiet", action="store_true",
-                    help="print nothing but errors")
+                    help="print nothing but errors (and, with --profile, "
+                    "the phase lines)")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="print the render's phases as JSON lines and "
+                    "write a torch.profiler Chrome trace into DIR")
     ap.add_argument("--ppm-only", action="store_true")
     ap.add_argument("--png-only", action="store_true")
     args = ap.parse_args(argv)
@@ -121,7 +139,8 @@ def main(argv=None, stats: Optional[dict] = None) -> int:
                     dtype=dtype, chunk_pixels=args.chunk, device=args.device,
                     quiet=args.quiet, ppm=not args.png_only,
                     png=not args.ppm_only, stats=stats,
-                    checkpoint=args.checkpoint, seed=args.seed)
+                    checkpoint=args.checkpoint, seed=args.seed,
+                    profile=args.profile)
     return 0
 
 

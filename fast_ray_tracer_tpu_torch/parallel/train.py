@@ -14,6 +14,13 @@ the tables it derives (each slot's primitive, each primitive's
 refractive index for the containers walk, a clustered mesh's cluster
 boxes) stay fixed during training; the mesh's triangle planes follow the
 live vertices (render.pixel_colors).
+
+The step is data-parallel over pixels with a `mesh` (parallel/mesh.py):
+each rank renders its shard of the batch, its loss is its shard's share
+of the mean over the whole batch, and after the backward the gradients
+are summed over the ranks, so every rank takes the same optimizer step
+from the whole batch's gradient. In the JAX package GSPMD inserts that
+all-reduce; here the step calls it.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from fast_ray_tracer_tpu_torch.parallel.mesh import PixelMesh, all_reduce_
 from fast_ray_tracer_tpu_torch.render.render import pixel_colors
 from fast_ray_tracer_tpu_torch.scene.ir import SceneIR
 
@@ -64,9 +72,25 @@ def trainable(params: Dict[str, torch.Tensor]):
     return [p for p in params.values() if p.requires_grad]
 
 
+def sum_gradients(mesh: PixelMesh, params: Dict[str, torch.Tensor]) -> None:
+    """Sum the trainable parameters' gradients over the mesh, in place: one
+    flat buffer and one all-reduce per dtype (a parameter without a
+    gradient on this rank contributes zeros). Under NCCL the buffer stays
+    on the device and nothing waits for the host; under gloo it goes
+    through host memory, which syncs the stream."""
+    ps = trainable(params)
+    for dtype in dict.fromkeys(p.dtype for p in ps):
+        group = [p for p in ps if p.dtype == dtype]
+        flat = torch.cat([(torch.zeros_like(p) if p.grad is None else p.grad)
+                          .reshape(-1) for p in group])
+        all_reduce_(mesh, flat)
+        for p, g in zip(group, flat.split([p.numel() for p in group])):
+            p.grad = g.view_as(p)
+
+
 def make_train_step(rt, cam_rt, static, n_samples: int, path_length: int,
                     optimizer: Optional[Callable] = None, remat=False,
-                    buckets=None):
+                    buckets=None, mesh: Optional[PixelMesh] = None):
     """-> (init, step). `init(params)` makes a TrainState whose optimizer
     (`optimizer(list_of_tensors)`, default `adam`) updates the parameters
     that require grad; the others stay frozen. `step(state, px, py, uv,
@@ -81,7 +105,15 @@ def make_train_step(rt, cam_rt, static, n_samples: int, path_length: int,
     given, is called after the forward and before the backward (for
     instrumentation). `remat` and `buckets` go to pixel_colors. With
     photon GI, `rt.gi_hook` comes from make_gi_hook(..., live_power=True)
-    for gradients through the photon map."""
+    for gradients through the photon map.
+
+    With `mesh`, every rank calls `step` with its shard of the batch
+    (parallel/mesh.shard_pixel_batch, the same count on every rank) and
+    a state that holds the same values on every rank
+    (mesh.replicate_scene): the loss is the shard's squared error over
+    the whole batch's element count, the gradients are summed over the
+    ranks (`sum_gradients`), and the returned loss (summed) and overflow
+    (the largest) are the whole batch's, the same on every rank."""
     make_opt = adam if optimizer is None else optimizer
 
     def init(params: Dict[str, torch.Tensor]) -> TrainState:
@@ -91,7 +123,10 @@ def make_train_step(rt, cam_rt, static, n_samples: int, path_length: int,
         img, overflow = pixel_colors(
             merge_params(params, static), rt, cam_rt, px, py, uv, ap,
             n_samples, path_length, remat=remat, buckets=buckets, rng=rng)
-        return torch.mean((img - target) ** 2), overflow
+        if mesh is None:
+            return torch.mean((img - target) ** 2), overflow
+        return (torch.sum((img - target) ** 2)
+                / (target.numel() * mesh.size)), overflow
 
     def step(state: TrainState, px, py, uv, ap, target, rng=None,
              between=None):
@@ -100,8 +135,14 @@ def make_train_step(rt, cam_rt, static, n_samples: int, path_length: int,
         if between is not None:
             between()
         loss.backward()
+        loss = loss.detach()
+        if mesh is not None:
+            sum_gradients(mesh, state.params)
+            loss = all_reduce_(mesh, loss.reshape(1))[0]
+            overflow = all_reduce_(mesh, overflow.to(torch.int32).reshape(1),
+                                   torch.distributed.ReduceOp.MAX)[0].bool()
         state.optimizer.step()
-        return state, loss.detach(), overflow
+        return state, loss, overflow
 
     return init, step
 

@@ -1,4 +1,4 @@
-"""Top-level render loop, one device.
+"""Top-level render loop, on one device or many.
 
 Every pixel's usteps x vsteps subpixel samples become rays in one flat
 batch, chunked to bound memory: a chunk holds at most
@@ -25,11 +25,31 @@ key tree. Photon GI runs a photon pass before the chunk loop
 training step (parallel/train.py) share: rays for pixel ids, the trace,
 the per-pixel average and (A + D + S) / 3, plus the trace's overflow
 flag.
+
+One chunk loop serves one device and many. With a `mesh`
+(parallel/mesh.py: one process per device over torch.distributed) every
+rank calls `render_scene` with the same arguments: each chunk's pixels
+split into contiguous equal shards, rank r traces shard r from the RNG
+node root.fold(c).fold(r) (the JAX package's `local_rays` folds the
+device index the same way), the probe counts and overflow flags are
+reduced with MAX so every rank escalates on the same chunks, and the
+chunk's colors are all-gathered, so every rank returns the whole canvas.
+The photon pass runs whole on every rank. Per-pixel arithmetic is
+unchanged, so a deterministic frame is the same canvas at any world
+size. Without a mesh no collective runs.
+
+The bucket calibration of a single-device render is kept on disk
+(`frt_buckets.json` in $FRT_COMPILE_CACHE, default ~/.cache/frt_torch),
+keyed by everything spawn counts depend on: a repeat render skips the
+probe. A stale entry costs only the escalation, which rewrites it.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 import math
+import os
 import time
 from typing import Optional
 
@@ -39,6 +59,9 @@ import torch
 from fast_ray_tracer_tpu_torch.ops import mesh
 from fast_ray_tracer_tpu_torch.parallel.checkpoint import (
     load_render_progress, save_render_progress,
+)
+from fast_ray_tracer_tpu_torch.parallel.mesh import (
+    PixelMesh, all_reduce_, gather_rows,
 )
 from fast_ray_tracer_tpu_torch.render import photon
 from fast_ray_tracer_tpu_torch.render.camera import (
@@ -55,6 +78,7 @@ from fast_ray_tracer_tpu_torch.sampling.rng import RNG
 from fast_ray_tracer_tpu_torch.scene.compile import compile_scene
 from fast_ray_tracer_tpu_torch.scene.ir import SceneIR, default_device
 from fast_ray_tracer_tpu_torch.scene.model import SceneDesc
+from fast_ray_tracer_tpu_torch.utils.profiling import PhaseTimer
 
 
 # the largest (chunk rays) x (light samples + final-gather rays) product
@@ -64,6 +88,72 @@ from fast_ray_tracer_tpu_torch.scene.model import SceneDesc
 SHADOW_RAYS_PER_CHUNK = 1 << 25
 # the photon pass's root: the render tree's fold(PHOTON_FOLD)
 PHOTON_FOLD = 12345
+
+
+# tables larger than this are fingerprinted by a strided sample and their
+# ends, not hashed whole (a 141,312-triangle mesh's tables are ~10 MB)
+_HASH_WHOLE_BYTES = 1 << 20
+
+
+def _bucket_cache_path() -> str:
+    return os.path.join(os.environ.get(
+        "FRT_COMPILE_CACHE", os.path.expanduser("~/.cache/frt_torch")),
+        "frt_buckets.json")
+
+
+def _bucket_cache_key(ir: SceneIR, cfg, cam, chunk_pixels, dtype,
+                      path_length) -> str:
+    """A hash of everything the spawn counts depend on: the scene's static
+    structure and config, the camera (the frame's size, its samples a
+    pixel, its aperture and pose), the chunk, the dtype, the depth, and a
+    fingerprint of every table (its shape and dtype, and its bytes, or
+    for a large table 8,192 strided elements and 2,048 at each end)."""
+    h = hashlib.sha1()
+    h.update(repr(ir.meta).encode())
+    h.update(repr(cfg).encode())
+    h.update(repr(cam).encode())
+    h.update(f"{chunk_pixels}:{dtype}:{path_length}:torch1".encode())
+    for name, t in ir.tables().items():
+        h.update(f"{name}{tuple(t.shape)}{t.dtype}".encode())
+        flat = t.detach().reshape(-1)
+        if flat.numel() * flat.element_size() > _HASH_WHOLE_BYTES:
+            step = max(1, flat.numel() // 8192)
+            flat = torch.cat([flat[::step][:8192], flat[:2048],
+                              flat[-2048:]])
+        h.update(flat.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _read_bucket_cache() -> dict:
+    try:
+        with open(_bucket_cache_path()) as f:
+            entries = json.load(f)
+    except (OSError, ValueError):
+        return {}
+    return entries if isinstance(entries, dict) else {}
+
+
+def _bucket_cache_get(key: str):
+    """The bucket tuple stored under `key`, or None."""
+    v = _read_bucket_cache().get(key)
+    return tuple(int(x) for x in v) if isinstance(v, list) else None
+
+
+def _bucket_cache_put(key: str, buckets) -> None:
+    """Store `buckets` under `key`: the file is written under a temporary
+    name and renamed over the old one. A cache that cannot be written is
+    skipped; it is never fatal."""
+    path = _bucket_cache_path()
+    try:
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        entries = _read_bucket_cache()
+        entries[key] = [int(b) for b in buckets]
+        tmp = f"{path}.{os.getpid()}.tmp"
+        with open(tmp, "w") as f:
+            json.dump(entries, f)
+        os.replace(tmp, path)
+    except OSError:
+        pass
 
 
 def quantize_buckets(counts, margin):
@@ -172,10 +262,13 @@ def render_scene(scene: SceneDesc, dtype=torch.float32,
                  stats: Optional[dict] = None,
                  checkpoint_path: Optional[str] = None,
                  checkpoint_every: int = 8,
-                 seed: Optional[int] = None) -> np.ndarray:
+                 seed: Optional[int] = None,
+                 mesh: Optional[PixelMesh] = None,
+                 timer: Optional[PhaseTimer] = None,
+                 progress: bool = False) -> np.ndarray:
     """Render a scene to an (H, W, 3) float64 numpy canvas (linear,
-    pre-encode), on `device` (default: the CUDA card; the CPU only when
-    asked for).
+    pre-encode), on `device` (default: the mesh's device, else the CUDA
+    card; the CPU only when asked for).
 
     A scene that needs random numbers (`needs_rng`) draws them from the
     RNG tree of `seed` (0 when None): the same seed renders the same frame
@@ -192,13 +285,27 @@ def render_scene(scene: SceneDesc, dtype=torch.float32,
     With `checkpoint_path`, the canvas and the count of finished chunks
     are written there every `checkpoint_every` chunks and after the last
     one; a render that finds a snapshot of the same chunking there
-    resumes after its last finished chunk."""
+    resumes after its last finished chunk (with a mesh only rank 0
+    writes it, and every rank reads it).
+
+    With `mesh` (parallel/mesh.PixelMesh) every rank of the mesh calls
+    this with the same arguments and receives the whole canvas; the
+    chunk is rounded up to a multiple of the mesh's size, and the bucket
+    calibration is not cached (see the module docstring). `timer` (a
+    utils/profiling.PhaseTimer) records the phases compile_scene,
+    trace_photons, probe_buckets and render_chunks; `progress` prints
+    `chunk i/n` after each chunk."""
     cfg = scene.config
     cam = scene.camera
+    if device is None and mesh is not None:
+        device = mesh.device
     device = default_device(device)
-    ir = compile_scene(scene, dtype=dtype, device=device)
-    cam_rt = build_camera(cam, dtype=dtype, device=device)
-    rt = build_statics(ir, cfg)
+    if timer is None:
+        timer = PhaseTimer()
+    with timer.phase("compile_scene"):
+        ir = compile_scene(scene, dtype=dtype, device=device)
+        cam_rt = build_camera(cam, dtype=dtype, device=device)
+        rt = build_statics(ir, cfg)
     if stats is None:
         stats = {}
     stats.update(buckets=None, escalations=0, exact_chunks=0)
@@ -212,10 +319,11 @@ def render_scene(scene: SceneDesc, dtype=torch.float32,
         # caustic iff include_caustics, global iff include_final_gather
         t0 = time.perf_counter()
         pstats = {}
-        maps = photon.trace_photons(
-            ir, rt, root.fold(PHOTON_FOLD), dtype,
-            caustic=cfg.include_caustics, global_=cfg.include_final_gather,
-            stats=pstats)
+        with timer.phase("trace_photons", count=cfg.photon_count):
+            maps = photon.trace_photons(
+                ir, rt, root.fold(PHOTON_FOLD), dtype,
+                caustic=cfg.include_caustics,
+                global_=cfg.include_final_gather, stats=pstats)
         stats.update(photon_seconds=time.perf_counter() - t0,
                      photons=pstats)
         if shade_gi:
@@ -228,16 +336,27 @@ def render_scene(scene: SceneDesc, dtype=torch.float32,
     chunk_pixels = min(chunk_pixels, max(
         256, SHADOW_RAYS_PER_CHUNK
         // (S * (ir.meta.max_light_samples + gather))))
+    size, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    chunk_pixels = -(-chunk_pixels // size) * size
+    shard = chunk_pixels // size
     path_length = cfg.di_path_length
     det_table = torch.as_tensor(cmj_points_static(cam.usteps, cam.vsteps)) \
         .to(device=device, dtype=dtype)
     use_bucketed = ir.meta.has_reflective or ir.meta.has_refractive
 
+    def agreed(t):
+        # with a mesh, the largest value over its ranks, so that every rank
+        # takes the same branch
+        if mesh is None:
+            return t
+        return all_reduce_(mesh, t.to(torch.int64).reshape(-1),
+                           torch.distributed.ReduceOp.MAX)
+
     def probe_counts(px, py, ck):
         counts = spawn_counts(ir, rt, *rays_for_pixels(
             cam_rt, *primary_samples(cam, cam_rt, det_table, px, py, ck)),
             path_length, compaction=compaction)
-        return torch.stack(counts).tolist() if counts else []
+        return agreed(torch.stack(counts)).tolist() if counts else []
 
     def render_chunk(px, py, ck, buckets):
         res, ovf = pixel_colors(ir, rt, cam_rt,
@@ -246,28 +365,42 @@ def render_scene(scene: SceneDesc, dtype=torch.float32,
                                 path_length, buckets=buckets,
                                 compaction=compaction,
                                 rng=None if ck is None else ck.fold(1))
-        return res, bool(ovf)
+        return res, bool(agreed(ovf))
 
     total = W * H
     n_chunks = math.ceil(total / chunk_pixels)
 
     def chunk_arrays(c):
-        # pixel ids of chunk c, made on the device; the tail chunk is padded
-        # to the fixed chunk size with pixel (0, 0), cut off afterwards
-        idx = torch.arange(c * chunk_pixels, (c + 1) * chunk_pixels,
-                           device=device)
+        # this rank's shard of chunk c, its pixel ids made on the device;
+        # the tail chunk is padded to the fixed chunk size with pixel
+        # (0, 0), cut off afterwards
+        lo = c * chunk_pixels + rank * shard
+        idx = torch.arange(lo, lo + shard, device=device)
         idx = torch.where(idx < total, idx, 0)
-        return idx % W, idx // W, None if root is None else root.fold(c)
+        ck = None if root is None else root.fold(c)
+        if ck is not None and mesh is not None:
+            ck = ck.fold(rank)
+        return idx % W, idx // W, ck
 
-    buckets = ()
+    buckets = cache_key = None
     if use_bucketed:
-        # ONE calibration for the whole render: max per-level spawn counts
-        # over five sampled chunks (the top of the image is often
-        # background and alone would under-size every bucket), 1.5x margin
-        samples = sorted({0, n_chunks // 4, n_chunks // 2,
-                          (3 * n_chunks) // 4, n_chunks - 1})
-        counts = [probe_counts(*chunk_arrays(c)) for c in samples]
-        buckets = quantize_buckets([max(v) for v in zip(*counts)], 1.5)
+        if mesh is None:
+            cache_key = _bucket_cache_key(ir, cfg, cam, chunk_pixels, dtype,
+                                          path_length)
+            buckets = _bucket_cache_get(cache_key)
+        if buckets is None:
+            # ONE calibration for the whole render: max per-level spawn
+            # counts over five sampled chunks (the top of the image is
+            # often background and alone would under-size every bucket),
+            # 1.5x margin
+            with timer.phase("probe_buckets"):
+                samples = sorted({0, n_chunks // 4, n_chunks // 2,
+                                  (3 * n_chunks) // 4, n_chunks - 1})
+                counts = [probe_counts(*chunk_arrays(c)) for c in samples]
+                buckets = quantize_buckets([max(v) for v in zip(*counts)],
+                                           1.5)
+            if cache_key is not None:
+                _bucket_cache_put(cache_key, buckets)
         stats["buckets"] = buckets
 
     out = np.zeros((total, 3), dtype=np.float64)
@@ -278,30 +411,38 @@ def render_scene(scene: SceneDesc, dtype=torch.float32,
                 and snap["canvas"].shape == (total, 3):
             out = snap["canvas"]
             start_chunk = snap["chunks_done"]
-    for c in range(start_chunk, n_chunks):
-        lo = c * chunk_pixels
-        hi = min(lo + chunk_pixels, total)
-        px, py, ck = chunk_arrays(c)
-        res, ovf = render_chunk(px, py, ck,
-                                buckets if use_bucketed else None)
-        if ovf:
-            # exact per-level counts for THIS chunk; the escalated buckets
-            # serve the rest of the render
-            esc = quantize_buckets(probe_counts(px, py, ck), 1.2)
-            buckets = tuple(max(a, b) for a, b in zip(buckets, esc))
-            stats["buckets"] = buckets
-            stats["escalations"] += 1
-            print(f"bucket overflow: recalibrated to {buckets}", flush=True)
+    with timer.phase("render_chunks", n=n_chunks - start_chunk):
+        for c in range(start_chunk, n_chunks):
+            lo = c * chunk_pixels
+            hi = min(lo + chunk_pixels, total)
+            px, py, ck = chunk_arrays(c)
             res, ovf = render_chunk(px, py, ck, buckets)
-        if ovf:
-            # probe ceiling exceeded (spawns > 3x primary): never silent —
-            # the unrolled exact path re-renders the chunk
-            stats["exact_chunks"] += 1
-            print(f"bucket overflow persists (buckets={buckets}): chunk "
-                  "re-rendered on the exact unrolled path", flush=True)
-            res, _ = render_chunk(px, py, ck, None)
-        out[lo:hi] = res[: hi - lo].cpu().double().numpy()
-        if checkpoint_path is not None and (
-                (c + 1) % checkpoint_every == 0 or c + 1 == n_chunks):
-            save_render_progress(checkpoint_path, out, c + 1, n_chunks)
+            if ovf:
+                # exact per-level counts for THIS chunk; the escalated
+                # buckets serve the rest of the render
+                esc = quantize_buckets(probe_counts(px, py, ck), 1.2)
+                buckets = tuple(max(a, b) for a, b in zip(buckets, esc))
+                stats["buckets"] = buckets
+                stats["escalations"] += 1
+                if cache_key is not None:
+                    _bucket_cache_put(cache_key, buckets)
+                print(f"bucket overflow: recalibrated to {buckets}",
+                      flush=True)
+                res, ovf = render_chunk(px, py, ck, buckets)
+            if ovf:
+                # probe ceiling exceeded (spawns > 3x primary): never
+                # silent — the unrolled exact path re-renders the chunk
+                stats["exact_chunks"] += 1
+                print(f"bucket overflow persists (buckets={buckets}): "
+                      "chunk re-rendered on the exact unrolled path",
+                      flush=True)
+                res, _ = render_chunk(px, py, ck, None)
+            if mesh is not None:
+                res = gather_rows(mesh, res)
+            out[lo:hi] = res[: hi - lo].cpu().double().numpy()
+            if checkpoint_path is not None and rank == 0 and (
+                    (c + 1) % checkpoint_every == 0 or c + 1 == n_chunks):
+                save_render_progress(checkpoint_path, out, c + 1, n_chunks)
+            if progress:
+                print(f"chunk {c + 1}/{n_chunks}", flush=True)
     return out.reshape(H, W, 3)

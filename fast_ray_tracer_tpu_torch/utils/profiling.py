@@ -1,15 +1,20 @@
-"""Per-phase wall-clock timers and the CLI's nominal rays/s.
+"""Per-phase wall-clock timers, the CLI's nominal rays/s, profiler traces.
 
-The port's copy of the part of the JAX package's utils/profiling.py that
-the command line uses; device traces are torch.profiler's business.
+The port's counterpart of the JAX package's utils/profiling.py: the
+phase timer, rays/s, and `trace_context`, which records a torch.profiler
+trace (host operators and, with a card, its kernels) where the JAX
+package records a jax.profiler one.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import os
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
+
+TRACE_FILE = "trace.json"
 
 
 class PhaseTimer:
@@ -49,3 +54,24 @@ def rays_per_second(n_pixels: int, samples_per_pixel: int,
     """Nominal throughput: pixels x camera samples x rays per sample over
     the wall."""
     return n_pixels * samples_per_pixel * rays_per_sample / max(seconds, 1e-12)
+
+
+@contextlib.contextmanager
+def trace_context(log_dir: Optional[str]):
+    """Record a torch.profiler trace of the body (every activity the build
+    supports: the host's operators, and the card's kernels and copies
+    with CUDA) and write it as a Chrome trace, `log_dir`/TRACE_FILE
+    (chrome://tracing or Perfetto read it). A no-op for None, so call
+    sites can leave it wired in."""
+    if log_dir is None:
+        yield
+        return
+    from torch.profiler import profile, supported_activities
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profile(activities=supported_activities())
+    prof.start()
+    try:
+        yield
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(os.path.join(log_dir, TRACE_FILE))

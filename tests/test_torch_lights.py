@@ -171,11 +171,12 @@ def test_light_sampling_and_shading_match_jax(analytic_pair):
 
 
 @pytest.mark.parametrize("which", ["analytic", "mesh"])
-def test_canvas_matches_jax(which):
+def test_canvas_matches_jax(which, monkeypatch, tmp_path):
     """64x32 depth 5, float64, one chunk: the port's render_scene against
     the JAX package's trace_bucketed on the port's buckets; the canvases
     agree to 1e-9 (the mesh through the port's plain queries and the JAX
     jnp fold)."""
+    monkeypatch.setenv("FRT_COMPILE_CACHE", str(tmp_path))
     tsc = _analytic_scene() if which == "analytic" else _mesh_scene()
     stats = {}
     got = trender.render_scene(tsc, dtype=torch.float64, chunk_pixels=W * H,

@@ -148,14 +148,19 @@ def test_bucketed_matches_unrolled(dtype):
     assert bool(ovf)
 
 
-def test_render_overflow_falls_back_exactly(monkeypatch):
+def test_render_overflow_falls_back_exactly(monkeypatch, tmp_path):
     """Undersized buckets: every chunk escalates, then re-renders on the
-    exact trace — and the canvas is the same as the calibrated render's."""
+    exact trace — and the canvas is the same as the calibrated render's.
+    The bucket cache lives in the test's own directory: the second render
+    would otherwise read the first one's entry and never escalate, and
+    the undersized escalation would be written for later renders."""
+    monkeypatch.setenv("FRT_COMPILE_CACHE", str(tmp_path))
     sc = tdemo.glass_spheres(32, 16)
     want = trender.render_scene(sc, dtype=torch.float64, chunk_pixels=256,
                                 device="cpu")
     monkeypatch.setattr(trender, "quantize_buckets",
                         lambda counts, margin: (64,) * len(counts))
+    (tmp_path / "frt_buckets.json").unlink()
     stats = {}
     got = trender.render_scene(sc, dtype=torch.float64, chunk_pixels=256,
                                device="cpu", stats=stats)
@@ -164,8 +169,9 @@ def test_render_overflow_falls_back_exactly(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """With jax and yaml unimportable, the port renders 8x4 on the CPU and
-    chip_smoke.py imports."""
+    """With jax and yaml unimportable, the port renders 8x4 on the CPU,
+    its multi-device and profiler modules import, and chip_smoke.py
+    imports."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -173,6 +179,10 @@ def test_port_imports_no_jax():
         "import torch\n"
         "from fast_ray_tracer_tpu_torch.render.render import render_scene\n"
         "from fast_ray_tracer_tpu_torch.scene.demo import glass_spheres\n"
+        "import fast_ray_tracer_tpu_torch.parallel.mesh\n"
+        "import fast_ray_tracer_tpu_torch.parallel.distributed\n"
+        "import fast_ray_tracer_tpu_torch.utils.profiling\n"
+        "from fast_ray_tracer_tpu_torch.parallel import make_mesh\n"
         "import chip_smoke\n"
         "c = render_scene(glass_spheres(8, 4), dtype=torch.float32,"
         " device='cpu')\n"

@@ -142,9 +142,10 @@ def test_showcase_bucketed_matches_unrolled(dtype):
             assert torch.equal(x, y)
 
 
-def test_render_scene_showcase_on_cpu():
+def test_render_scene_showcase_on_cpu(monkeypatch, tmp_path):
     """render_scene takes the whole scene language on the CPU: a finite
     canvas of the right shape, no NotImplementedError."""
+    monkeypatch.setenv("FRT_COMPILE_CACHE", str(tmp_path))
     stats = {}
     img = render_scene(tdemo.primitives_showcase(16, 8), dtype=torch.float32,
                        device="cpu", stats=stats)

@@ -128,7 +128,8 @@ def _render_both(scene, w, h):
     return got
 
 
-def test_mtl_test_canvas_matches_jax(tmp_path):
+def test_mtl_test_canvas_matches_jax(tmp_path, monkeypatch):
+    monkeypatch.setenv("FRT_COMPILE_CACHE", str(tmp_path))
     d = tmp_path / "scenes_reduced"
     d.mkdir()
     for f in ("mtl_test.obj", "mtl_test.mtl"):
@@ -148,7 +149,8 @@ def test_mtl_test_canvas_matches_jax(tmp_path):
     assert got.std() > 0.02
 
 
-def test_soft_textured_canvas_matches_jax():
+def test_soft_textured_canvas_matches_jax(monkeypatch, tmp_path):
+    monkeypatch.setenv("FRT_COMPILE_CACHE", str(tmp_path))
     scene = tdemo.soft_textured(64, 32, segments=(32, 32))
     ir = tcomp.compile_scene(scene, dtype=torch.float64, device="cpu")
     assert ir.meta.use_clusters and ir.meta.needs_hit_sort
