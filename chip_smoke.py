@@ -6,18 +6,24 @@ Phases, one line each or more:
   1. device: the card's name and power limit (nvidia-smi); exits non-zero
      without CUDA;
   2. build: builds both kernel sources of csrc/ into build/kernels/, the
-     two nvcc runs at once, and prints ptxas's register report;
+     two nvcc runs at once, and prints ptxas's register and shared-memory
+     report; the host C++ walks (native/) must build too, so no measured
+     path falls back to the Python walks;
   3. kernels: compact_rows (C=6) and expand_rows (C=9) at the level-0 shape
      of the 800x400 frame (N = 640,000; B from the bucket calibration), the
      CUDA kernel against its plain torch version on the same inputs, bit for
      bit, over act densities {0, .05, .5, .95, 1}, a ragged N, an overflow
      case, float64, a scan of more than 1024 tiles, a 5-row input, N an
      exact multiple of the compaction tile, N = 0, C = 32 in float64 and
-     float32, two compactions back to back on one stream with different
-     act (the look-back scratch resets), and the VJPs of the autograd
-     pair, also on an overflowed level;
-     median event times of both, and of the nearest single PyTorch call
-     (library_ms), which the port never calls;
+     float32, N an exact multiple of the expansion's tile and a ragged N,
+     more than 1024 expansion tiles, C = 1 and C = 32 for both in float32
+     and float64, two compactions back to back on one stream with
+     different act (the look-back scratch resets), compact, expand,
+     compact, expand back to back (the two share that scratch), an
+     expansion of an unaligned child view, and the VJPs of the autograd
+     pair, also on an overflowed level; median event times of both, and
+     of the nearest single PyTorch call (library_ms), which the port
+     never calls;
   4. render: render_scene(glass_spheres(800, 400)) in float32 on the card,
      the whole frame in one chunk: the launch counts of that call, then the
      warm wall (median of --reps, default 3) and rays/s at 126 rays/pixel;
@@ -195,7 +201,8 @@ Phases, one line each or more:
      temporary FRT_COMPILE_CACHE, so a frame after the first of its
      scene (the warm walls of phases 4, 8, 11 and others) skips the
      probe.
-Then the compaction's device time per call from torch.profiler, one
+Then each compaction kernel's device time and kernel launches per call
+from torch.profiler (the expansion must launch one), one
 profiled warm train step, one profiled warm showcase and soft frame each
 (device events, device busy time, idle share against the warm wall, and
 top operators by device time), and the middle chunk of a warm Cornell
@@ -228,7 +235,7 @@ import time
 import numpy as np
 import torch
 
-from fast_ray_tracer_tpu_torch import _build
+from fast_ray_tracer_tpu_torch import _build, native
 from fast_ray_tracer_tpu_torch.__main__ import main as cli_main
 from fast_ray_tracer_tpu_torch.io.ppm import (
     construct_ppm, encode_png, png16, read_png, read_ppm,
@@ -337,42 +344,45 @@ def device_us(prof, rows=None):
                for e in rows if e.device_type == DeviceType.CUDA)
 
 
-def profiled_ms(fn, calls=20):
-    """Device time per call of fn() in ms, from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return device_us(prof) / calls / 1e3
-
-
 def check_kernels(device, n0, b0, seed=0):
     """Kernel == plain, bitwise, over the case grid; returns per kernel
     its max_abs_err, ms, plain_ms, bound_ms, bound_by and library_ms."""
     g = torch.Generator(device=device).manual_seed(seed)
     n = 2 * n0
     f32, f64 = torch.float32, torch.float64
-    tile = compact.compact_tile_rows(6, f32)
-    cases = [(f"p={p}", n, p, b0, f32, 6) for p in (0.0, 0.05, 0.5, 0.95, 1.0)]
-    cases += [("ragged", n - 333, 0.5, b0, f32, 6),
-              ("overflow", n, 0.5, n // 4, f32, 6),
-              ("float64", n, 0.5, b0, f64, 6),
-              # more than 1024 tiles: the expansion's one-block scan carries
-              ("two-pass scan", 1_500_001, 0.5, 1_000_000, f32, 6),
-              ("tiny", 5, 0.5, 8, f32, 6),
-              ("tile multiple", 400 * tile, 0.5, b0, f32, 6),
-              ("N=0", 0, 0.5, 64, f32, 6),
-              ("C=32 float64", 200_003, 0.5, 150_000, f64, 32),
-              ("C=32 float32 overflow", 200_003, 0.5, 60_000, f32, 32)]
+    tile = compact.tile_rows(6, f32)
+    etile = compact.tile_rows(9, f32)
+    # (name, N, p, B, dtype, compaction's C, expansion's C)
+    cases = [(f"p={p}", n, p, b0, f32, 6, 9)
+             for p in (0.0, 0.05, 0.5, 0.95, 1.0)]
+    cases += [("ragged", n - 333, 0.5, b0, f32, 6, 9),
+              ("overflow", n, 0.5, n // 4, f32, 6, 9),
+              ("float64", n, 0.5, b0, f64, 6, 9),
+              # more than 1024 tiles of either kernel (the look-back slides
+              # over several rounds of 256 predecessors)
+              ("two-pass scan", 1_500_001, 0.5, 1_000_000, f32, 6, 9),
+              ("tiny", 5, 0.5, 8, f32, 6, 9),
+              ("tile multiple", 400 * tile, 0.5, b0, f32, 6, 9),
+              ("N=0", 0, 0.5, 64, f32, 6, 9),
+              ("C=32 float64", 200_003, 0.5, 150_000, f64, 32, 9),
+              ("C=32 float32 overflow", 200_003, 0.5, 60_000, f32, 32, 9),
+              # the expansion's own tile: an exact multiple, a ragged N,
+              # more than 1024 tiles, C = 1 and C = 32 in both dtypes (the
+              # child span's 16-byte copies start mid-row and end ragged)
+              ("expand tile multiple", 400 * etile, 0.5, b0, f32, 6, 9),
+              ("expand ragged", 400 * etile + 77, 0.5, b0, f32, 6, 9),
+              ("expand 1100 tiles", 1100 * etile + 13, 0.5, 700_000, f32,
+               6, 9),
+              ("C=1 float32", 300_007, 0.5, 200_000, f32, 1, 1),
+              ("C=1 float64 overflow", 300_007, 0.5, 100_000, f64, 1, 1),
+              ("C=32 float32", 100_003, 0.3, 40_000, f32, 32, 32),
+              ("C=32 float64 overflow", 100_003, 0.7, 40_000, f64, 32, 32),
+              ("C=1 dense overflow", 70_001, 0.95, 1_000, f32, 1, 1)]
     err = {"compact": 0.0, "expand": 0.0}
-    for name, nn, p, b, dt, c in cases:
+    for name, nn, p, b, dt, c, ce in cases:
         act = torch.rand(nn, generator=g, device=device) < p
         src = torch.randn((nn, c), generator=g, device=device, dtype=dt)
-        child = torch.randn((b, 9), generator=g, device=device, dtype=dt)
+        child = torch.randn((b, ce), generator=g, device=device, dtype=dt)
         fill = (FILL_ROW * 6)[:c]
         got_c = compact.compact_rows_cuda(src, act, b, fill)
         want_c = compact.compact_rows_plain(src, act, b, fill)
@@ -385,7 +395,7 @@ def check_kernels(device, n0, b0, seed=0):
                           ("expand", (got_e, want_e))):
             if x.numel():
                 err[k] = max(err[k], float((x - y).abs().max()))
-        log("kernels", f"{name}: N={nn} C={c} B={b} live={count} "
+        log("kernels", f"{name}: N={nn} C={c}/{ce} B={b} live={count} "
             f"{'overflow ' if count > b else ''}{dt} equal={ok}")
         if not ok:
             raise AssertionError(f"kernel != plain in case {name}")
@@ -402,6 +412,36 @@ def check_kernels(device, n0, b0, seed=0):
         f"live={[int(a.sum()) for a in acts]} equal={ok}")
     if not ok:
         raise AssertionError("back-to-back compactions != plain")
+    # compact, expand, compact, expand on one stream with different act,
+    # no sync between: both share the stream's scratch, and each call must
+    # leave it clean for the other
+    acts = [torch.rand(n, generator=g, device=device) < p
+            for p in (0.2, 0.6, 0.9, 0.4)]
+    child = torch.randn((b0, 9), generator=g, device=device)
+    ops = [(compact.compact_rows_cuda, compact.compact_rows_plain,
+            (src, ), (b0, FILL_ROW)),
+           (compact.expand_rows_cuda, compact.expand_rows_plain,
+            (child, ), ())] * 2
+    got = [kern(*x, a, *rest) for (kern, _, x, rest), a in zip(ops, acts)]
+    torch.cuda.synchronize()
+    ok = all(torch.equal(y, plain(*x, a, *rest))
+             for y, (_, plain, x, rest), a in zip(got, ops, acts))
+    log("kernels", f"compact, expand, compact, expand back to back: N={n} "
+        f"B={b0} live={[int(a.sum()) for a in acts]} equal={ok}")
+    if not ok:
+        raise AssertionError("alternating compactions and expansions != "
+                             "plain")
+    # a child that is a contiguous view 36 bytes into its storage: the
+    # expansion stages its span with scalar loads
+    act = torch.rand(n, generator=g, device=device) < 0.5
+    child = torch.randn((b0 + 1, 9), generator=g, device=device)[1:]
+    got = compact.expand_rows_cuda(child, act)
+    ok = (child.data_ptr() % 16 != 0
+          and torch.equal(got, compact.expand_rows_plain(child, act)))
+    log("kernels", f"unaligned child: N={n} B={b0} offset "
+        f"{child.data_ptr() % 16} B equal={ok}")
+    if not ok:
+        raise AssertionError("expand of an unaligned child != plain")
 
     # the autograd pair: each backward launches the other kernel
     act = torch.rand(n, generator=g, device=device) < 0.5
@@ -473,21 +513,42 @@ def check_kernels(device, n0, b0, seed=0):
     return out
 
 
-def compact_device_ms(device, n0, b0, event_ms):
-    """The compaction's device time per call at the level-0 shape, from
-    torch.profiler. The event time also holds the wrapper's host work
-    (allocation, ctypes) whenever the card waits for it. Run after every
-    wall-clock phase: once the profiler has run, launches cost more."""
+def kernel_device_ms(device, n0, b0, event_ms):
+    """Each compaction kernel's device time and kernel launches per call
+    at the level-0 shape, from torch.profiler (20 calls). The event time
+    also holds the wrapper's host work (allocation, ctypes) whenever the
+    card waits for it. Run after every wall-clock phase: once the profiler
+    has run, launches cost more."""
+    from torch.profiler import ProfilerActivity, profile
     g = torch.Generator(device=device).manual_seed(3)
     n = 2 * n0
     act = torch.rand(n, generator=g, device=device) < 0.5
     src = torch.randn((n, 6), generator=g, device=device)
-    ms = profiled_ms(lambda: compact.compact_rows_cuda(src, act, b0,
-                                                       FILL_ROW))
-    log("kernels", f"compact_rows N={n} B={b0} p=0.5: device {ms * 1e3:.2f} "
-        f"us a call (profiler, 20 calls) beside the event time "
-        f"{event_ms * 1e3:.1f} us")
-    return ms
+    child = torch.randn((b0, 9), generator=g, device=device)
+    calls = 20
+    out = {}
+    for key, fn in (("compact", lambda: compact.compact_rows_cuda(
+                         src, act, b0, FILL_ROW)),
+                    ("expand", lambda: compact.expand_rows_cuda(child, act))):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = prof.key_averages()
+        kernels = profile_summary(prof, rows)[0]
+        ms = device_us(prof, rows) / calls / 1e3
+        out[key] = {"device_ms": ms, "launches_per_call": kernels / calls}
+        log("kernels", f"{key}_rows N={n} B={b0} p=0.5: device "
+            f"{ms * 1e3:.2f} us a call, {kernels / calls:g} kernel launches "
+            f"a call (profiler, {calls} calls) beside the event time "
+            f"{event_ms[key] * 1e3:.1f} us")
+    if out["expand"]["launches_per_call"] != 1:
+        raise AssertionError("expand_rows launched another number of "
+                             "kernels than one a call")
+    return out
 
 
 def frame(device, compaction="auto", stats=None, scene=None, seed=None,
@@ -2695,6 +2756,9 @@ def main():
                 entry = short_kernel_name(line.split("'")[1])
             elif "registers" in line or "spill" in line:
                 log("build", f"{name} {entry}: {line.strip()}")
+    if not native.available():
+        raise AssertionError("the host C++ walks did not build")
+    log("build", "host C++ walks (native/) built: compile_scene takes them")
 
     # 3. kernels at the level-0 shape, B from the calibration
     scene = glass_spheres(W, H)
@@ -2852,8 +2916,10 @@ def main():
     log("multi-device", f"phases 33-38 took {time.perf_counter() - t0:.1f} "
         f"s")
 
-    kstats["compact"]["device_ms"] = compact_device_ms(
-        device, W * H, b0, kstats["compact"]["ms"])
+    for key, dev_stats in kernel_device_ms(
+            device, W * H, b0,
+            {k: kstats[k]["ms"] for k in ("compact", "expand")}).items():
+        kstats[key].update(dev_stats)
     profile_showcase(device, show_wall)
     profile_showcase(device, soft_wall, soft_textured(W, H), "soft-profile")
     profile_train_step(device, tstats["level"]["ms"])

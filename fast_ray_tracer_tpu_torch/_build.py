@@ -9,7 +9,10 @@ Two kinds of library, both loaded with ctypes through a plain C interface:
 A library's file name carries a hash of its sources and flags, so an edit
 rebuilds it and an unchanged tree reuses it. Builds write to a temporary
 name and rename, so concurrent processes never load a half-written file.
-A failed build raises with the compiler's output: nothing falls back.
+A failed build raises with the compiler's output. No CUDA kernel falls
+back: a failed nvcc build raises to the kernel's caller. Only the host
+C++ walks do: `native.available()` catches their build's error, and the
+scene compiler then takes the Python walks.
 """
 
 from __future__ import annotations

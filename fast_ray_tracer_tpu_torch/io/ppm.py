@@ -26,7 +26,9 @@ through Pillow for everything but 16-bit RGB: grey at 2 and 4 bits scales
 to 8 bits first (x85, x17) and 16-bit grey+alpha and RGBA keep only their
 high byte, divided by 255. The scanlines are reconstructed by the native
 core (native/png_core.cpp), since the Average and Paeth filters are
-sequential along a row. `read_image` reads the other formats through
+sequential along a row; where that core did not build, read_png raises
+a RuntimeError naming it (the JAX package reads PNGs through Pillow).
+`read_image` reads the other formats through
 Pillow, which only it imports.
 """
 

@@ -4,31 +4,56 @@ The port's copy of the JAX package's `native/`: the OBJ line scan
 (`obj_core.cpp`) and the BVH-divide simulation that yields the shadow-walk
 ranks (`divide_core.cpp`); and the PNG reader's scanline reconstruction
 (`png_core.cpp`), whose Average and Paeth filters are sequential along a
-row. A 141k-triangle mesh makes the Python divide
-walk take many seconds, and it runs inside every `compile_scene`, so the
-compiler always takes the C++ walks. `_build.py` builds them with g++ into
-build/native/ at first use; a failed build raises.
+row. A 141k-triangle mesh makes the Python divide walk take many seconds,
+and it runs inside every `compile_scene`, so the compiler takes the C++
+walks whenever they build. `_build.py` builds them with g++ into
+build/native/ at first use.
 
-The Python walks stay as the reference the C++ is held to, bit for bit:
-`scene/divide.shadow_ranks_python` and `scene/obj_loader._scan_obj_python`.
+Where they cannot be built (no g++, or a failing one), `available()` is
+False, one warning names the compiler's first line, and the compiler
+takes the Python walks, as the JAX package does:
+`scene/obj_loader._scan_obj_python` and `scene/divide.shadow_ranks_python`,
+the reference the C++ is held to bit for bit. The PNG unfilter has no
+Python version: without the build, `png_unfilter` (and so `read_png`)
+raises a RuntimeError that names it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import sys
+import threading
+import warnings
 
 import numpy as np
 
 from fast_ray_tracer_tpu_torch import _build
 
 _lib = None
+_tried = False
+_failure = ""
+_lock = threading.Lock()
 
 
 def _load():
-    global _lib
-    if _lib is None:
-        lib = _build.load("native")
+    """The library, built and loaded at the first call; None, after one
+    warning, when the build fails."""
+    global _lib, _tried, _failure
+    with _lock:
+        if _tried:
+            return _lib
+        _tried = True
+        try:
+            lib = _build.load("native")
+        except (RuntimeError, OSError) as e:
+            # _build's message is a header line, then the compiler's output
+            lines = [ln.strip() for ln in str(e).splitlines() if ln.strip()]
+            _failure = ": ".join(lines[:2]) or type(e).__name__
+            warnings.warn(f"the host C++ walks (native/) did not build "
+                          f"({_failure}); compile_scene takes the Python "
+                          f"OBJ scan and divide walk, and PNG files cannot "
+                          f"be read", RuntimeWarning, stacklevel=3)
+            return None
         lib.frt_obj_load.restype = ctypes.c_void_p
         lib.frt_obj_load.argtypes = [ctypes.c_char_p]
         lib.frt_obj_counts.restype = None
@@ -42,7 +67,21 @@ def _load():
             ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
             ctypes.c_void_p]
         _lib = lib
-    return _lib
+        return _lib
+
+
+def available() -> bool:
+    """Whether the C++ walks built (tried once, at the first call)."""
+    return _load() is not None
+
+
+def _require(what: str):
+    lib = _load()
+    if lib is None:
+        raise RuntimeError(f"{what} needs the host C++ build of "
+                           f"fast_ray_tracer_tpu_torch/native/ (g++), which "
+                           f"failed: {_failure}")
+    return lib
 
 
 class ObjGeometry:
@@ -65,7 +104,7 @@ class ObjGeometry:
 
 def parse_obj(path: str) -> ObjGeometry:
     """Scan an OBJ file with the C++ core."""
-    lib = _load()
+    lib = _require("the C++ OBJ scan")
     h = lib.frt_obj_load(path.encode())
     if not h:
         raise FileNotFoundError(path)
@@ -109,7 +148,7 @@ def shadow_ranks(root, threshold: int, n_leaves: int):
     """frt_shadow_ranks over a serialized divide-sim Node tree
     (scene/divide.py): rank[leaf_id] = post-divide DFS visit position.
     Raises on an inconsistent tree (the Python walk's assert)."""
-    lib = _load()
+    lib = _require("the C++ divide walk")
 
     INF = float("inf")
     IDENT = np.asarray([1.0, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1])
@@ -214,7 +253,7 @@ def png_unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     filtered scanlines of 1 + stride bytes each (`raw` holds at least
     that much). Raises ValueError naming the first scanline whose filter
     type is unknown."""
-    lib = _load()
+    lib = _require("reading a PNG file")
     out = np.empty((h, stride), np.uint8)
     rc = lib.frt_png_unfilter(raw, h, stride, bpp, out.ctypes.data)
     if rc != 0:

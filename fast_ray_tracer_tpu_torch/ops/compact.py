@@ -11,12 +11,14 @@ On a CUDA tensor both launch the hand-written kernels of
 `csrc/compact.cu` (replacing the TPU kernels `_compact_kernel` and
 `_expand_kernel` of fast_ray_tracer_tpu/ops/compact_pallas.py), built on
 first use with nvcc into build/kernels/ (`_build.py`) and loaded with
-ctypes; a kernel that cannot be built or launched raises. Compaction is
-one single-pass scan-and-move launch plus a fill launch, which also
-clears the per-stream scratch for the next call; expansion is a count, a
-one-block scan and a move. On a CPU tensor they take the plain torch
-versions below, which are also the reference the kernels are held to.
-`LAUNCHES` counts the calls that launched each operation's kernels.
+ctypes; a kernel that cannot be built or launched raises. Both are one
+single-pass scan with decoupled look-back over the flags: compaction
+moves the tile's rows in that launch and fills the bucket's tail in a
+second, which also clears the per-stream scratch; expansion is that one
+launch, and its last tile clears the scratch. On a CPU tensor they take
+the plain torch versions below, which are also the reference the kernels
+are held to. `LAUNCHES` counts the calls that launched each operation's
+kernels.
 """
 
 from __future__ import annotations
@@ -73,23 +75,23 @@ def _load():
             fn.restype = i32
         for name in ("frt_expand_f32", "frt_expand_f64"):
             fn = getattr(lib, name)
-            fn.argtypes = [vp, vp, vp, vp, vp, vp, i64, i32, i64, vp]
+            fn.argtypes = [vp, vp, vp, vp, i64, i64, i32, i64, i32, vp]
             fn.restype = i32
-        for name in ("frt_tile", "frt_max_c", "frt_compact_min_tile_rows"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = i32
-        lib.frt_compact_tile_rows.argtypes = [i32, i32]
-        lib.frt_compact_tile_rows.restype = i32
+        lib.frt_max_c.argtypes = []
+        lib.frt_max_c.restype = i32
+        lib.frt_tile_rows.argtypes = [i32, i32]
+        lib.frt_tile_rows.restype = i32
+        lib.frt_scratch_words.argtypes = [i64]
+        lib.frt_scratch_words.restype = i64
         lib.max_c = lib.frt_max_c()
-        lib.min_tile_rows = lib.frt_compact_min_tile_rows()
         _lib = lib
     return _lib
 
 
-def compact_tile_rows(c: int, dtype) -> int:
-    """Rows per tile of the compaction kernel for rows of c elements."""
-    return _load().frt_compact_tile_rows(c, torch.empty((), dtype=dtype)
-                                         .element_size())
+def tile_rows(c: int, dtype) -> int:
+    """Rows per tile of either kernel for rows of c elements."""
+    return _load().frt_tile_rows(c, torch.empty((), dtype=dtype)
+                                 .element_size())
 
 
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -106,18 +108,11 @@ def _check(rows, act, what: str):
         raise ValueError(f"{what}: act on {act.device}, rows on {rows.device}")
 
 
-def _expand_scratch(n: int, device):
-    nb = max(1, -(-n // _load().frt_tile()))
-    return (torch.empty(nb, dtype=torch.int32, device=device),
-            torch.empty(nb, dtype=torch.int32, device=device),
-            torch.empty(1, dtype=torch.int32, device=device))
-
-
-# the compaction's scratch per (device, stream): ticket, total and one
-# status word per tile. Zeroed once when made; every call leaves it clean
-# for the next call on its stream. The lock keeps two threads from
-# interleaving their launches on one stream's scratch (ctypes releases the
-# GIL during the call).
+# the kernels' scratch per (device, stream): ticket, total, tiles done and
+# one status word per tile, shared by both operations. Zeroed once when
+# made; every call of either leaves it clean for the next call on its
+# stream. The lock keeps two threads from interleaving their launches on
+# one stream's scratch (ctypes releases the GIL during the call).
 _compact_scratch = {}
 _compact_lock = threading.Lock()
 
@@ -136,55 +131,58 @@ def _raise_on(err: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
 
 
-def compact_rows_cuda(src, act, B: int, fill_row):
-    """compact_rows through the CUDA kernel (csrc/compact.cu)."""
-    _check(src, act, "compact_rows")
-    n, c = src.shape
+def _launch(op: str, rows, act, out, n: int, c: int, b: int, *extra):
+    """frt_<op>_<dtype> on the current stream of rows' device, with that
+    stream's scratch; counts the call and raises on a launch error. Host
+    work here is most of a call's time at the wavefront's sizes: the raw
+    stream handle, and the device switched inside the library."""
     lib = _load()
-    if act.shape[0] != n or len(fill_row) != c or not 1 <= c <= lib.max_c:
-        raise ValueError(f"compact_rows: act {tuple(act.shape)}, fill row of "
-                         f"{len(fill_row)} for src {tuple(src.shape)} "
-                         f"(C <= {lib.max_c})")
-    if not 1 <= B < 2**31 or n >= 2**31:
-        raise ValueError(f"compact_rows: B={B}, N={n} out of range")
-    # host work here is most of a call's time at the wavefront's sizes:
-    # the raw stream handle, and the device switched inside the library
-    dev = src.device
+    dev = rows.device
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
-    out = torch.empty((B, c), dtype=src.dtype, device=dev)
-    fill = (ctypes.c_double * c)(*fill_row)
     with _compact_lock:
-        scratch = _stream_scratch(dev, stream, 2 + -(-n // lib.min_tile_rows))
-        err = getattr(lib, "frt_compact_" + _SUFFIX[src.dtype])(
-            src.data_ptr(), act.data_ptr(), out.data_ptr(),
-            scratch.data_ptr(), scratch.numel(), n, c, B, fill, dev.index,
+        scratch = _stream_scratch(dev, stream, lib.frt_scratch_words(n))
+        err = getattr(lib, f"frt_{op}_{_SUFFIX[rows.dtype]}")(
+            rows.data_ptr(), act.data_ptr(), out.data_ptr(),
+            scratch.data_ptr(), scratch.numel(), n, c, b, *extra, dev.index,
             stream)
         if err != 0:
             # a call that failed part way may leave its scratch dirty
             _compact_scratch.pop((dev.index, stream), None)
-    LAUNCHES["compact"] += 1
-    _raise_on(err, "compact_rows")
+    LAUNCHES[op] += 1
+    _raise_on(err, f"{op}_rows")
+
+
+def compact_rows_cuda(src, act, B: int, fill_row):
+    """compact_rows through the CUDA kernel (csrc/compact.cu)."""
+    _check(src, act, "compact_rows")
+    n, c = src.shape
+    max_c = _load().max_c
+    if act.shape[0] != n or len(fill_row) != c or not 1 <= c <= max_c:
+        raise ValueError(f"compact_rows: act {tuple(act.shape)}, fill row of "
+                         f"{len(fill_row)} for src {tuple(src.shape)} "
+                         f"(C <= {max_c})")
+    if not 1 <= B < 2**31 or n >= 2**31:
+        raise ValueError(f"compact_rows: B={B}, N={n} out of range")
+    out = torch.empty((B, c), dtype=src.dtype, device=src.device)
+    _launch("compact", src, act, out, n, c, B,
+            (ctypes.c_double * c)(*fill_row))
     return out
 
 
 def expand_rows_cuda(child, act):
-    """expand_rows through the CUDA kernel (csrc/compact.cu)."""
+    """expand_rows through the CUDA kernel (csrc/compact.cu); allocates
+    only its output."""
     _check(child, act, "expand_rows")
     b, c = child.shape
     n = act.shape[0]
+    max_c = _load().max_c
+    if not 1 <= c <= max_c:
+        raise ValueError(f"expand_rows: child {tuple(child.shape)} "
+                         f"(C <= {max_c})")
     if not 1 <= b < 2**31 or n >= 2**31:
         raise ValueError(f"expand_rows: B={b}, N={n} out of range")
-    lib = _load()
-    with torch.cuda.device(child.device):
-        out = torch.empty((n, c), dtype=child.dtype, device=child.device)
-        count, off, total = _expand_scratch(n, child.device)
-        stream = torch.cuda.current_stream(child.device).cuda_stream
-        err = getattr(lib, "frt_expand_" + _SUFFIX[child.dtype])(
-            child.data_ptr(), act.data_ptr(), out.data_ptr(),
-            count.data_ptr(), off.data_ptr(), total.data_ptr(), n, c, b,
-            stream)
-        LAUNCHES["expand"] += 1
-    _raise_on(err, "expand_rows")
+    out = torch.empty((n, c), dtype=child.dtype, device=child.device)
+    _launch("expand", child, act, out, n, c, b)
     return out
 
 

@@ -13,9 +13,9 @@ composed and inverted on the host, group hierarchies dissolve into
 per-leaf world->object inverses, triangles are pre-transformed to world
 space, and the post-divide shadow-walk rank of every leaf is recovered by
 simulating the reference's BVH build (scene/divide.py, through its C++
-copy in native/). Each CSG tree becomes one shadow-walk leaf, its leaves
-tagged with (tree, ancestor mask, side mask) and the tree with a
-postorder filter program (`_csg_prog`). The tables are byte-identical to
+copy in native/ where that builds). Each CSG tree becomes one
+shadow-walk leaf, its leaves tagged with (tree, ancestor mask, side
+mask) and the tree with a postorder filter program (`_csg_prog`). The tables are byte-identical to
 the JAX package's; only the final wrap differs:
 `SceneIR(...).to(device, dtype)`.
 

@@ -15,8 +15,8 @@ planes (bounding_box.c:177-214 via `-inf + inf`), NaN containment tests are
 false, so groups bounded by infinite planes never reorder.
 
 All arithmetic here is scalar Python float (IEEE double, same as C).
-`compile_scene` takes the C++ copy of this walk (`native/`), which is
-held to this one bit for bit.
+`compile_scene` takes the C++ copy of this walk (`native/`) where it
+builds, held to this one bit for bit, and this one elsewhere.
 """
 
 from __future__ import annotations
@@ -351,9 +351,11 @@ def collect_leaf_order(node: Node, out: List[int]):
 
 def shadow_ranks(root: Node, threshold: int, n_leaves: int):
     """Divide the tree, then return rank[leaf_id] = visit position, through
-    the C++ walk (native/divide_core.cpp). `shadow_ranks_python` is the
-    reference it is held to, bit for bit."""
-    return native.shadow_ranks(root, threshold, n_leaves)
+    the C++ walk (native/divide_core.cpp) where it built, else through
+    `shadow_ranks_python`, the reference it is held to, bit for bit."""
+    if native.available():
+        return native.shadow_ranks(root, threshold, n_leaves)
+    return shadow_ranks_python(root, threshold, n_leaves)
 
 
 def shadow_ranks_python(root: Node, threshold: int, n_leaves: int):

@@ -225,7 +225,8 @@ def load_obj_into(shape, m_world: np.ndarray, tables, csg_id: int,
     """Parse shape.file and append a triangle block + divide-sim nodes.
 
     Geometry scanning runs in the C++ core (native/obj_core.cpp — the
-    analog of the reference's native obj_loader.c); assembly is vectorized
+    analog of the reference's native obj_loader.c), or in
+    `_scan_obj_python` where that did not build; assembly is vectorized
     numpy.
 
     csg_doc set = this mesh is a CSG child (src/shapes/csg.c accepts any
@@ -244,7 +245,8 @@ def load_obj_into(shape, m_world: np.ndarray, tables, csg_id: int,
     ckey = (path, os.path.getmtime(path))
     geo = _GEO_CACHE.get(ckey)
     if geo is None:
-        geo = native.parse_obj(path)
+        geo = (native.parse_obj(path) if native.available()
+               else _scan_obj_python(path))
         _GEO_CACHE[ckey] = geo
 
     # replay the mtllib/usemtl event stream exactly as the inline scan

@@ -167,3 +167,37 @@ def test_no_fallback_off_cpu():
         compact.compact_rows(src, act, 4, (0.0,) * 6)
     with pytest.raises(ValueError):
         compact.expand_rows(src, act)
+
+
+# the expansion's contract at its edges, which the CUDA kernel keeps too:
+# (N, B, C, density); density None = the first B + 37 lanes active and the
+# rest not, so the live count passes B and the lanes past it read row B-1
+EDGES = {"n0": (0, 16, 9, 0.5), "all_inactive": (1000, 64, 9, 0.0),
+         "all_active": (1000, 1000, 9, 1.0),
+         "count_past_b": (1000, 300, 9, None),
+         "c1": (1537, 900, 1, 0.6), "c32": (1537, 900, 32, 0.6)}
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("edge", list(EDGES))
+def test_expand_edges_match_xla(edge, dtype):
+    """The port's expand_rows on the CPU equals the jnp expansion,
+    evaluated eagerly, bit for bit: N = 0, no live lane, every lane live,
+    a live count past B (the clamp at row B - 1), C = 1 and C = 32."""
+    n, b, c, p = EDGES[edge]
+    rng = np.random.default_rng(11)
+    if p is None:
+        act = np.arange(n) < b + 37
+    else:
+        act = rng.random(n) < p
+    child = rng.standard_normal((b, c)).astype(dtype)
+    got = compact.expand_rows(torch.from_numpy(child),
+                              torch.from_numpy(act)).numpy()
+    want = np.asarray(_xla_expand(jnp.asarray(child), jnp.asarray(act)))
+    assert got.shape == (n, c) and got.dtype == dtype
+    assert want.dtype == dtype
+    np.testing.assert_array_equal(got, want)
+    if p is None:
+        np.testing.assert_array_equal(got[b:b + 37], np.repeat(
+            child[b - 1:], 37, 0))
