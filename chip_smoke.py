@@ -201,6 +201,14 @@ Phases, one line each or more:
      temporary FRT_COMPILE_CACHE, so a frame after the first of its
      scene (the warm walls of phases 4, 8, 11 and others) skips the
      probe.
+ 39. (after the profiled sections below) the bench's entry points
+     (bench_torch/): its flagship cell at 3 rounds (its gates: no
+     overflow, finite frames, both compaction kernels launched), the
+     cell's calibrated pixel_colors frame bitwise phase 4's canvas;
+     entry()'s 64x32 forward step on the card (finite, no overflow);
+     dryrun_multichip(1) (one NCCL rank) and dryrun_multichip(2) (two
+     gloo ranks sharing cuda:0), both at once: finite, the same canvas bit
+     for bit, losses within DRYRUN_LOSS_RTOL.
 Then each compaction kernel's device time and kernel launches per call
 from torch.profiler (the expansion must launch one), one
 profiled warm train step, one profiled warm showcase and soft frame each
@@ -220,6 +228,7 @@ torch.profiler, and their per-kernel device-time tables go to PATH.
 """
 
 import argparse
+import concurrent.futures
 import contextlib
 import hashlib
 import json
@@ -270,9 +279,11 @@ from fast_ray_tracer_tpu_torch.scene.demo import (
     CORNELL_DIR, SOFT_DIR, cornell_box, glass_spheres, mesh_torus,
     primitives_showcase, soft_textured,
 )
-from fast_ray_tracer_tpu_torch.scene.model import ApertureDesc, replace
-from fast_ray_tracer_tpu_torch.scene.ir import PAT_UV_TEXTURE, SceneIR, SceneMeta
+from fast_ray_tracer_tpu_torch.scene.model import replace
+from fast_ray_tracer_tpu_torch.scene.ir import PAT_UV_TEXTURE
 from fast_ray_tracer_tpu_torch.utils.profiling import PhaseTimer, TRACE_FILE
+
+from bench_torch.extras import build_soup, dof_scene
 
 W, H = 800, 400
 RAYS_PER_PIXEL = 126      # 63 trace + 63 shadow rays (depth 5, 2 children)
@@ -602,38 +613,6 @@ def plain_mesh():
         yield
     finally:
         mesh.closest_cuda, mesh.shadow_cuda = saved
-
-
-def build_soup(device, n_tri=512 * 1024, n_rays=16384):
-    """tools/bench_mesh_stream.py's soup and rays from the same seeds:
-    64-triangle clusters along a coarse grid walk, rays between random
-    points of the grid."""
-    c = 64
-    nc = n_tri // c
-    rng = np.random.default_rng(0)
-    g = max(2, int(round(nc ** (1 / 3))))
-    idx = np.arange(nc)
-    centers = np.stack([idx % g, (idx // g) % g, idx // (g * g)],
-                       -1).astype(np.float32)
-    centers += rng.normal(0, 0.1, centers.shape)
-    base = centers[:, None, :] + rng.normal(0, 0.25, (nc, c, 3))
-    p1 = base.reshape(-1, 3).astype(np.float32)
-    e1 = rng.normal(0, 0.2, (nc * c, 3)).astype(np.float32)
-    e2 = rng.normal(0, 0.2, (nc * c, 3)).astype(np.float32)
-    v = np.stack([p1, p1 + e1, p1 + e2], 1)
-    meta = SceneMeta(n_triangles=nc * c, use_clusters=True, n_clusters=nc,
-                     cluster_size=c)
-    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
-    ir = SceneIR(meta=meta, tri_p1=t(p1), tri_e1=t(e1), tri_e2=t(e2),
-                 cluster_min=t(v.reshape(nc, c * 3, 3).min(1)),
-                 cluster_max=t(v.reshape(nc, c * 3, 3).max(1)))
-    extent = float(centers.max())
-    rng = np.random.default_rng(1)
-    o = rng.uniform(-2, extent + 2, (n_rays, 3)).astype(np.float32)
-    tgt = rng.uniform(0, extent, (n_rays, 3)).astype(np.float32)
-    d = tgt - o
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    return ir, t(o), t(d)
 
 
 def mesh_bound(m, orig, dirs, aux_bytes):
@@ -1029,15 +1008,6 @@ def check_card_vs_cpu(device, w=64, h=32):
 
 SEED = 7                  # the stochastic frames' seed
 CW = CH = 800             # the Cornell frame
-
-
-def dof_scene():
-    """glass_spheres(800, 400) through a circular aperture with 2x2 camera
-    jitter."""
-    sc = glass_spheres(W, H)
-    sc.camera = replace(sc.camera, usteps=2, vsteps=2, aperture=ApertureDesc(
-        kind="CIRCULAR_APERTURE", size=0.05, params=(1.0,), jitter=True))
-    return sc
 
 
 def render_dof(device, reps):
@@ -2576,6 +2546,53 @@ def two_ranks(reps, flagship, mcanvas, train_grads):
             for name in ("compact", "expand", "mesh_closest", "mesh_shadow")}
 
 
+# the dry run's loss over one rank and over two: the same squared errors
+# summed in another order in float32 (the two shards' sums all-reduced)
+DRYRUN_LOSS_RTOL = 1e-5
+
+
+def bench_entry_points(device, want):
+    """39: the bench's flagship cell, its frame against phase 4's canvas;
+    entry()'s forward step; the dry run on one rank and on two."""
+    from bench_torch import entry, headline
+    t0 = time.perf_counter()
+    res = headline.flagship(device, 3)
+    m = res["metrics"][headline.METRIC]
+    same = np.array_equal(res["image"], want)
+    log("bench", f"flagship cell: {m['value']:.4g} rays/s (median of "
+        f"{m['n']} rounds of {headline.REPS} frames, {m['min']:.4g} to "
+        f"{m['max']:.4g}); launches a round "
+        f"{res['info']['launches_per_round']}; its pixel_colors frame "
+        f"bitwise phase 4's canvas={same}")
+    if not same:
+        raise AssertionError("the bench's flagship frame differs from "
+                             "phase 4's canvas")
+    fn, args = entry.entry(device)
+    colors, overflow = fn(*args)
+    ok = (tuple(colors.shape) == (64 * 32, 3)
+          and bool(torch.isfinite(colors).all()) and not bool(overflow))
+    log("bench", f"entry(): forward {tuple(colors.shape)} {colors.dtype} "
+        f"on {colors.device}, finite and no overflow={ok}")
+    if not ok:
+        raise AssertionError("entry()'s forward step failed")
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    # both dry runs at once: their three rank processes spend most of
+    # their time starting up
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        one, two = pool.map(entry.dryrun_multichip, (1, 2))
+    same = np.array_equal(one["canvas"], two["canvas"])
+    rel = abs(two["loss"] - one["loss"]) / abs(one["loss"])
+    log("bench", f"dryrun_multichip: 1 rank over {one['placement']['backend']}"
+        f", 2 ranks over {two['placement']['backend']} (sharing the card "
+        f"{two['placement']['shared']}); losses {one['loss']:.9g} and "
+        f"{two['loss']:.9g} (relative difference {rel:.3e}); canvases "
+        f"bitwise {same}; the dry runs took {time.perf_counter() - t1:.1f} "
+        f"s, phase 39 {time.perf_counter() - t0:.1f} s")
+    if not same or not rel <= DRYRUN_LOSS_RTOL:
+        raise AssertionError("the dry run over two ranks differs from one")
+
+
 def cache_and_profile(device):
     """38: the flagship in a fresh bucket cache, cold (probe, entry
     written) and warm (hit, no probe), bitwise; then the command line's
@@ -2916,6 +2933,7 @@ def main():
     log("multi-device", f"phases 33-38 took {time.perf_counter() - t0:.1f} "
         f"s")
 
+
     for key, dev_stats in kernel_device_ms(
             device, W * H, b0,
             {k: kstats[k]["ms"] for k in ("compact", "expand")}).items():
@@ -2928,6 +2946,11 @@ def main():
     if args.profile:
         profile_to(args.profile, device, b0, f"{kind}; {smi}", wall,
                    mesh_wall)
+
+    # 39. the bench's flagship cell and driver entry points, after the
+    # profiled sections: run before them, it left the next profile of
+    # this process 2 kernel events short of its 20 calls
+    bench_entry_points(device, canvas)
 
     rows = []
     for name, key, replaces, src, count in (
