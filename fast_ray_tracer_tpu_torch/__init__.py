@@ -40,8 +40,23 @@ its own kernel launches, and every rank gets the whole canvas;
 same Adam step on each (`parallel/mesh.py`: `make_mesh`,
 `shard_pixel_batch`, `replicate_scene`). A single-device render caches
 its bucket calibration on disk ($FRT_COMPILE_CACHE, default
-~/.cache/frt_torch); the command line's `--profile DIR` writes a
-torch.profiler trace and prints the render's phases.
+~/.cache/frt_torch).
+
+Tracing (`utils/profiling.py`): the render driver and the train step
+open spans (`render_scene` and `train.step` are the units; inside them
+`render.compile_scene`, `render.bucket_cache`, `render.probe_buckets`,
+`render.probe`, `render.chunks`, `render.enqueue`, `train.forward`,
+`train.backward`, `train.optimizer`) and wrap each call that waits for
+the device in a `sync.<site>` span counted in `host_syncs`. The tracer
+is off until a sink is attached: `remove = profiling.add_sink(fn)` hands
+`fn` every closed `Span` and every `Count` until `remove()`;
+`profiling.Recorder` is a sink that keeps them. Under any torch.profiler
+the spans are ranges above their kernels, on or off. `with
+profiling.trace_context(DIR):` records a profiler trace of its body
+(DIR/trace.json) with the tracer on, and writes the spans and each
+unit's counters to DIR/spans.json; the command line's `--profile DIR`
+renders under it and prints the render's phases (`PhaseTimer`) and its
+whole wall as JSON lines.
 
 Importing the package loads nothing heavy: import the submodules you use,
 e.g. `fast_ray_tracer_tpu_torch.render.render.render_scene`.

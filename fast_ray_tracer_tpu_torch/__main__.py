@@ -9,9 +9,11 @@ STEM.png (STEM defaults to the scene's `output.file`). Scenes that need
 random numbers (jittered cameras or lights, shaped apertures, photon GI)
 draw them from `--seed` (default 0): the same seed writes the same files.
 
-With `--profile DIR` the render runs under torch.profiler (a Chrome
-trace in DIR/trace.json) and the render's phases are printed as JSON
-lines.
+With `--profile DIR` the render runs under torch.profiler with the
+port's tracer on: a Chrome trace in DIR/trace.json, where the render's
+spans (utils/profiling.py) are ranges above their kernels, the spans and
+the host-sync counters in DIR/spans.json, and the render's phases printed
+as JSON lines.
 
 `main(argv)` parses the arguments and loads the scene; `render_to_files`
 is the rest, for a caller that holds a SceneDesc.
@@ -50,8 +52,8 @@ def render_to_files(scene: SceneDesc, out: str, dtype=None,
     `stats`, if a dict, receives render_scene's bucket statistics;
     `checkpoint` is render_scene's snapshot path (resume after a kill);
     `seed` render_scene's seed. With `profile` (a directory) the render
-    runs under `trace_context(profile)` and its phases are printed as
-    JSON lines. Unless `quiet`, each chunk prints its progress."""
+    runs under `trace_context(profile)` and its phases, and the whole
+    render's wall (`render`), are printed as JSON lines. Unless `quiet`, each chunk prints its progress."""
     device = torch.device(device)
     if dtype is None:
         dtype = torch.float64 if device.type == "cpu" else torch.float32
@@ -59,13 +61,14 @@ def render_to_files(scene: SceneDesc, out: str, dtype=None,
     W, H = cam.width, cam.height
     timer = PhaseTimer()
     t0 = time.perf_counter()
-    with timer.phase("render"), trace_context(profile):
+    with trace_context(profile):
         canvas = render_scene(scene, dtype=dtype,
                               chunk_pixels=chunk_pixels or W * H,
                               device=device, stats=stats,
                               checkpoint_path=checkpoint, seed=seed,
                               timer=timer, progress=not quiet)
     wall = time.perf_counter() - t0
+    timer.phases.append({"phase": "render", "seconds": wall})
     if not quiet:
         rays = rays_per_second(W * H, cam.usteps * cam.vsteps, 2, wall)
         print(f"rendered {W}x{H} in {wall:.2f}s "
@@ -120,7 +123,9 @@ def main(argv=None, stats: Optional[dict] = None) -> int:
                     "the phase lines)")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="print the render's phases as JSON lines and "
-                    "write a torch.profiler Chrome trace into DIR")
+                    "write a torch.profiler Chrome trace (trace.json) and "
+                    "the render's spans and host-sync counts (spans.json) "
+                    "into DIR")
     ap.add_argument("--ppm-only", action="store_true")
     ap.add_argument("--png-only", action="store_true")
     args = ap.parse_args(argv)

@@ -29,9 +29,11 @@ import threading
 import torch
 
 from fast_ray_tracer_tpu_torch import _build
+from fast_ray_tracer_tpu_torch.utils.profiling import CounterGroup
 
-# kernel launches per operation since the last reset (a plain int each)
-LAUNCHES = {"compact": 0, "expand": 0}
+# kernel launches per operation since the last reset (a plain int each);
+# the tracer's counters launches.compact and launches.expand
+LAUNCHES = CounterGroup("launches.", "compact", "expand")
 
 _lib = None
 
@@ -148,7 +150,7 @@ def _launch(op: str, rows, act, out, n: int, c: int, b: int, *extra):
         if err != 0:
             # a call that failed part way may leave its scratch dirty
             _compact_scratch.pop((dev.index, stream), None)
-    LAUNCHES[op] += 1
+    LAUNCHES.add(op)
     _raise_on(err, f"{op}_rows")
 
 

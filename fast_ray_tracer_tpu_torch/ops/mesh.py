@@ -54,6 +54,7 @@ import torch
 
 from fast_ray_tracer_tpu_torch import _build
 from fast_ray_tracer_tpu_torch.constants import EPSILON
+from fast_ray_tracer_tpu_torch.utils.profiling import CounterGroup
 
 SC = 128                   # triangles per supercluster (two clusters of 64)
 GROUP = 32                 # superclusters per group box
@@ -62,8 +63,9 @@ _BIG = 1e30                # empty-box sentinel of padded superclusters
 # elements of the largest (rays x boxes x 3) or (pairs x SC) temporaries
 _CHUNK_ELEMS = 1 << 22
 
-# kernel launches per query since the last reset (a plain int each)
-LAUNCHES = {"mesh_closest": 0, "mesh_shadow": 0}
+# kernel launches per query since the last reset (a plain int each); the
+# tracer's counters launches.mesh_closest and launches.mesh_shadow
+LAUNCHES = CounterGroup("launches.", "mesh_closest", "mesh_shadow")
 
 
 class MeshTables(NamedTuple):
@@ -495,7 +497,7 @@ def closest_cuda(m: MeshTables, orig, dirs, keep=None):
             *_rays_tree(m, orig, dirs, split),
             None if keep is None else keep.data_ptr(), t.data_ptr(),
             idx.data_ptr(), None if key is None else key.data_ptr(), stream)
-        LAUNCHES["mesh_closest"] += 1
+        LAUNCHES.add("mesh_closest")
     _raise_on(err, "mesh closest")
     return t, idx
 
@@ -515,7 +517,7 @@ def shadow_cuda(m: MeshTables, orig, dirs):
             m.cast.data_ptr(), m.sc_rank.data_ptr(), m.group_rank.data_ptr(),
             t.data_ptr(), rank.data_ptr(),
             None if key is None else key.data_ptr(), stream)
-        LAUNCHES["mesh_shadow"] += 1
+        LAUNCHES.add("mesh_shadow")
     _raise_on(err, "mesh shadow")
     return rank, t
 

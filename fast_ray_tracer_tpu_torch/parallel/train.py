@@ -33,6 +33,7 @@ import torch
 from fast_ray_tracer_tpu_torch.parallel.mesh import PixelMesh, all_reduce_
 from fast_ray_tracer_tpu_torch.render.render import pixel_colors
 from fast_ray_tracer_tpu_torch.scene.ir import SceneIR
+from fast_ray_tracer_tpu_torch.utils.profiling import span, unit
 
 # float tables that are acceleration structure, not parameters
 NON_TRAINABLE = frozenset({"cluster_min", "cluster_max"})
@@ -99,7 +100,9 @@ def make_train_step(rt, cam_rt, static, n_samples: int, path_length: int,
     that draws, photon GI's final gather among them, needs one), takes the
     MSE against `target` (n_pixels, 3), back-propagates and updates the
     parameters in place; it returns (state, loss, overflow), both 0-d
-    tensors on the device, without a host sync. It raises nothing on
+    tensors on the device, without a host sync (one train step is the
+    tracer's unit `train.step`, with the spans `train.forward`,
+    `train.backward` and `train.optimizer`). It raises nothing on
     overflow: a True flag means the bucketed trace dropped rays and the
     step's gradient is incomplete, and the caller decides. `between`, if
     given, is called after the forward and before the backward (for
@@ -130,18 +133,24 @@ def make_train_step(rt, cam_rt, static, n_samples: int, path_length: int,
 
     def step(state: TrainState, px, py, uv, ap, target, rng=None,
              between=None):
-        state.optimizer.zero_grad(set_to_none=True)
-        loss, overflow = loss_fn(state.params, px, py, uv, ap, target, rng)
-        if between is not None:
-            between()
-        loss.backward()
-        loss = loss.detach()
-        if mesh is not None:
-            sum_gradients(mesh, state.params)
-            loss = all_reduce_(mesh, loss.reshape(1))[0]
-            overflow = all_reduce_(mesh, overflow.to(torch.int32).reshape(1),
-                                   torch.distributed.ReduceOp.MAX)[0].bool()
-        state.optimizer.step()
+        with unit("train.step"):
+            state.optimizer.zero_grad(set_to_none=True)
+            with span("train.forward"):
+                loss, overflow = loss_fn(state.params, px, py, uv, ap,
+                                         target, rng)
+            if between is not None:
+                between()
+            with span("train.backward"):
+                loss.backward()
+                loss = loss.detach()
+                if mesh is not None:
+                    sum_gradients(mesh, state.params)
+                    loss = all_reduce_(mesh, loss.reshape(1))[0]
+                    overflow = all_reduce_(
+                        mesh, overflow.to(torch.int32).reshape(1),
+                        torch.distributed.ReduceOp.MAX)[0].bool()
+            with span("train.optimizer"):
+                state.optimizer.step()
         return state, loss, overflow
 
     return init, step

@@ -25,6 +25,7 @@ import torch
 from fast_ray_tracer_tpu_torch.ops.vec import dot3, xform_points
 from fast_ray_tracer_tpu_torch.scene.ir import default_device
 from fast_ray_tracer_tpu_torch.scene.model import CameraDesc
+from fast_ray_tracer_tpu_torch.utils.profiling import host_sync
 
 POINT_LIKE_APERTURES = ("POINT_APERTURE", "HEXAGONAL_APERTURE",
                         "PENTAGONAL_APERTURE", "OCTAGONAL_APERTURE")
@@ -71,9 +72,11 @@ def build_camera(cam: CameraDesc, dtype=torch.float32,
         half_width, half_height = half_view * aspect, half_view
     pixel_size = half_width * 2.0 / cam.width
     inv = np.linalg.inv(view_transform_np(cam.frm, cam.to, cam.up))
+    with host_sync("upload"):
+        inv = torch.as_tensor(inv).to(device=default_device(device),
+                                      dtype=dtype)
     return CameraRT(
-        inv=torch.as_tensor(inv).to(device=default_device(device),
-                                    dtype=dtype),
+        inv=inv,
         pixel_size=pixel_size,
         half_width=half_width, half_height=half_height,
         canvas_distance=cam.focal_length,

@@ -52,6 +52,7 @@ from fast_ray_tracer_tpu_torch.sampling.cmj import (
 from fast_ray_tracer_tpu_torch.scene import ir as IR
 from fast_ray_tracer_tpu_torch.scene.ir import SceneIR
 from fast_ray_tracer_tpu_torch.scene.model import ConfigDesc
+from fast_ray_tracer_tpu_torch.utils.profiling import host_sync
 
 # bucket fill row (origin | direction) for the lanes past the live count:
 # far outside the scene, so every fill lane misses
@@ -104,7 +105,8 @@ class RenderStatics(NamedTuple):
 def build_statics(ir: SceneIR, cfg: ConfigDesc) -> RenderStatics:
     meta = ir.meta
     slot_np = slot_tables(meta)
-    slot_prim = torch.as_tensor(slot_np).to(ir.inv_tf.device)
+    with host_sync("upload"):
+        slot_prim = torch.as_tensor(slot_np).to(ir.inv_tf.device)
     csg_tables = ()
     if meta.has_csg:
         # static host tables from the Python-int tags in meta, moved to the

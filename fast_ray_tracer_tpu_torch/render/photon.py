@@ -64,6 +64,7 @@ from fast_ray_tracer_tpu_torch.render.integrator import (
 from fast_ray_tracer_tpu_torch.sampling.rng import RNG
 from fast_ray_tracer_tpu_torch.scene import ir as IR
 from fast_ray_tracer_tpu_torch.scene.ir import SceneIR
+from fast_ray_tracer_tpu_torch.utils.profiling import host_sync, span
 
 CAUSTIC, GLOBAL = 0, 1
 
@@ -401,7 +402,8 @@ def build_photon_map(pos: np.ndarray, power: np.ndarray, dirs: np.ndarray,
 def photon_targets(ir: SceneIR, photon_count: int):
     """Each light's share of photon_count, apportioned by the CIE-Lab
     lightness of its intensity (photon_tracer.c:202-257), in float64."""
-    inten = ir.light_intensity.detach().to("cpu", torch.float64).numpy()
+    with host_sync("photon_targets"):
+        inten = ir.light_intensity.detach().to("cpu", torch.float64).numpy()
     L_vals = [float(colorlib.rgb_to_lab(inten[li])[0])
               for li in range(ir.meta.n_lights)]
     total = sum(L_vals) or 1.0
@@ -478,7 +480,8 @@ def trace_photons(ir: SceneIR, rt, rng, dtype, caustic: bool, global_: bool,
         mstats = {"targets": list(targets), "stored": [], "batches": 0,
                   "syncs": 0, "emitted": 0, "stalled": []}
         for li in range(ir.meta.n_lights):
-            base = got = int(count)
+            with host_sync("photon_count"):
+                base = got = int(count)
             limit = base + targets[li]
             stalls = emitted = 0
             b = batch or _batch_size(2 * targets[li])
@@ -498,7 +501,8 @@ def trace_photons(ir: SceneIR, rt, rng, dtype, caustic: bool, global_: bool,
                     vals.append(bw.chain_samp)
                 count = _append(bufs, vals, bw.store, count, limit)
                 emitted += b
-                new_got = int(count)              # the batch's one sync
+                with host_sync("photon_count"):   # the batch's one sync
+                    new_got = int(count)
                 mstats["batches"] += 1
                 mstats["syncs"] += 1
                 stalls = stalls + 1 if new_got == got else 0
@@ -515,13 +519,15 @@ def trace_photons(ir: SceneIR, rt, rng, dtype, caustic: bool, global_: bool,
                                     else PHOTON_BATCH_MAX)
             mstats["stored"].append(got - base)
             mstats["emitted"] += emitted
-        n_stored = int(count)
+        with host_sync("photon_count"):
+            n_stored = int(count)
         mstats["syncs"] += 1
         if stats is not None:
             stats[map_type] = mstats
         if not n_stored:
             continue
-        host = [x[:n_stored].cpu().numpy() for x in bufs]
+        with host_sync("photon_map_copy", len(bufs)):
+            host = [x[:n_stored].cpu().numpy() for x in bufs]
         prov = {"light": host[5], "mat": host[3], "code": host[4],
                 "samp": host[6] if track else None}
         maps[map_type] = build_photon_map(
@@ -675,8 +681,8 @@ def irradiance_estimate(pm: PhotonMap, points, eyev, num: int,
     nothing) and processed in blocks whose candidate tables stay within
     QUERY_BUDGET_BYTES, so peak memory is bounded whatever R and however
     dense the map. Host syncs: one for the class sizes, one per class.
-    Profiled as the range "irradiance_estimate"."""
-    with torch.profiler.record_function("irradiance_estimate"):
+    Traced as the span "irradiance_estimate"."""
+    with span("irradiance_estimate"):
         return _irradiance_estimate(pm, points, eyev, num, max_dist, cone_k)
 
 
@@ -694,13 +700,15 @@ def _irradiance_estimate(pm, points, eyev, num, max_dist, cone_k):
     cls = torch.ceil(torch.log2(total.clamp(min=_MIN_WIDTH).to(torch.float64)
                                 / _MIN_WIDTH)).to(torch.int64)
     cls = torch.where(total > 0, cls.clamp(max=n_classes - 1), n_classes)
-    sizes = torch.bincount(cls, minlength=n_classes + 1).tolist()
+    with host_sync("estimate_classes"):
+        sizes = torch.bincount(cls, minlength=n_classes + 1).tolist()
     slot_bytes = _SLOT_INDEX_BYTES + _SLOT_FLOATS * points.element_size()
     for c in range(n_classes):
         if not sizes[c]:
             continue
         width = min(_MIN_WIDTH << c, max(pm.max_neighbors, 1))
-        idx = torch.nonzero(cls == c)[:, 0]
+        with host_sync("estimate_classes"):
+            idx = torch.nonzero(cls == c)[:, 0]
         block = max(1, QUERY_BUDGET_BYTES // (width * slot_bytes))
         for lo in range(0, idx.shape[0], block):
             q = idx[lo:lo + block]

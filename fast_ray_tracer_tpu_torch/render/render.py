@@ -9,8 +9,8 @@ static-bucket wavefront (integrator.trace_bucketed): one probe pass over
 up to five sampled chunks measures each level's spawn counts, and one
 shared bucket tuple serves the whole render. A chunk whose children still overflow a bucket escalates
 the buckets once; if it still overflows, that chunk is re-rendered on the
-exact unrolled trace. Each chunk costs one host sync, where its overflow
-flag and its colors come back. With `checkpoint_path` the canvas is
+exact unrolled trace. Each chunk costs two host syncs: its overflow flag
+and its colors come back. With `checkpoint_path` the canvas is
 snapshotted every few chunks, and a render resumes from its snapshot.
 
 Scenes that need random numbers (camera jitter, a shaped aperture, a
@@ -50,7 +50,6 @@ import hashlib
 import json
 import math
 import os
-import time
 from typing import Optional
 
 import numpy as np
@@ -78,7 +77,9 @@ from fast_ray_tracer_tpu_torch.sampling.rng import RNG
 from fast_ray_tracer_tpu_torch.scene.compile import compile_scene
 from fast_ray_tracer_tpu_torch.scene.ir import SceneIR, default_device
 from fast_ray_tracer_tpu_torch.scene.model import SceneDesc
-from fast_ray_tracer_tpu_torch.utils.profiling import PhaseTimer
+from fast_ray_tracer_tpu_torch.utils.profiling import (
+    PhaseTimer, add_sink, host_sync, span, timed_span, unit,
+)
 
 
 # the largest (chunk rays) x (light samples + final-gather rays) product
@@ -113,14 +114,18 @@ def _bucket_cache_key(ir: SceneIR, cfg, cam, chunk_pixels, dtype,
     h.update(repr(cfg).encode())
     h.update(repr(cam).encode())
     h.update(f"{chunk_pixels}:{dtype}:{path_length}:torch1".encode())
-    for name, t in ir.tables().items():
-        h.update(f"{name}{tuple(t.shape)}{t.dtype}".encode())
-        flat = t.detach().reshape(-1)
-        if flat.numel() * flat.element_size() > _HASH_WHOLE_BYTES:
-            step = max(1, flat.numel() // 8192)
-            flat = torch.cat([flat[::step][:8192], flat[:2048],
-                              flat[-2048:]])
-        h.update(flat.cpu().numpy().tobytes())
+    tables = ir.tables()
+    # a copy of each non-empty table to the host, each a sync on a card
+    with host_sync("bucket_cache_key",
+                   sum(t.numel() > 0 for t in tables.values())):
+        for name, t in tables.items():
+            h.update(f"{name}{tuple(t.shape)}{t.dtype}".encode())
+            flat = t.detach().reshape(-1)
+            if flat.numel() * flat.element_size() > _HASH_WHOLE_BYTES:
+                step = max(1, flat.numel() // 8192)
+                flat = torch.cat([flat[::step][:8192], flat[:2048],
+                                  flat[-2048:]])
+            h.update(flat.cpu().numpy().tobytes())
     return h.hexdigest()
 
 
@@ -144,16 +149,17 @@ def _bucket_cache_put(key: str, buckets) -> None:
     name and renamed over the old one. A cache that cannot be written is
     skipped; it is never fatal."""
     path = _bucket_cache_path()
-    try:
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        entries = _read_bucket_cache()
-        entries[key] = [int(b) for b in buckets]
-        tmp = f"{path}.{os.getpid()}.tmp"
-        with open(tmp, "w") as f:
-            json.dump(entries, f)
-        os.replace(tmp, path)
-    except OSError:
-        pass
+    with span("render.bucket_cache"):
+        try:
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            entries = _read_bucket_cache()
+            entries[key] = [int(b) for b in buckets]
+            tmp = f"{path}.{os.getpid()}.tmp"
+            with open(tmp, "w") as f:
+                json.dump(entries, f)
+            os.replace(tmp, path)
+        except OSError:
+            pass
 
 
 def quantize_buckets(counts, margin):
@@ -292,17 +298,34 @@ def render_scene(scene: SceneDesc, dtype=torch.float32,
     this with the same arguments and receives the whole canvas; the
     chunk is rounded up to a multiple of the mesh's size, and the bucket
     calibration is not cached (see the module docstring). `timer` (a
-    utils/profiling.PhaseTimer) records the phases compile_scene,
-    trace_photons, probe_buckets and render_chunks; `progress` prints
-    `chunk i/n` after each chunk."""
+    utils/profiling.PhaseTimer) is attached to the tracer for the call
+    and records the phases compile_scene, trace_photons, probe_buckets
+    and render_chunks; `progress` prints `chunk i/n` after each chunk.
+
+    The call is the tracer's unit `render_scene`; its spans are
+    `render.compile_scene`, `render.trace_photons`,
+    `render.bucket_cache`, `render.probe_buckets` (each probe
+    `render.probe`), `render.chunks` (each chunk's `render.enqueue`),
+    and `sync.<site>` around each call that waits for the device."""
+    remove = None if timer is None else add_sink(timer)
+    try:
+        with unit("render_scene"):
+            return _render(scene, dtype, chunk_pixels, device, compaction,
+                           stats, checkpoint_path, checkpoint_every, seed,
+                           mesh, progress)
+    finally:
+        if remove is not None:
+            remove()
+
+
+def _render(scene, dtype, chunk_pixels, device, compaction, stats,
+            checkpoint_path, checkpoint_every, seed, mesh, progress):
     cfg = scene.config
     cam = scene.camera
     if device is None and mesh is not None:
         device = mesh.device
     device = default_device(device)
-    if timer is None:
-        timer = PhaseTimer()
-    with timer.phase("compile_scene"):
+    with span("render.compile_scene"):
         ir = compile_scene(scene, dtype=dtype, device=device)
         cam_rt = build_camera(cam, dtype=dtype, device=device)
         rt = build_statics(ir, cfg)
@@ -317,15 +340,14 @@ def render_scene(scene: SceneDesc, dtype=torch.float32,
     if cfg.photon_count > 0 and use_gi:
         # maps populated as the generated main does (yaml_parser.py:201-216):
         # caustic iff include_caustics, global iff include_final_gather
-        t0 = time.perf_counter()
         pstats = {}
-        with timer.phase("trace_photons", count=cfg.photon_count):
+        with timed_span("render.trace_photons",
+                        count=cfg.photon_count) as pass_span:
             maps = photon.trace_photons(
                 ir, rt, root.fold(PHOTON_FOLD), dtype,
                 caustic=cfg.include_caustics,
                 global_=cfg.include_final_gather, stats=pstats)
-        stats.update(photon_seconds=time.perf_counter() - t0,
-                     photons=pstats)
+        stats.update(photon_seconds=pass_span.seconds, photons=pstats)
         if shade_gi:
             rt = rt._replace(gi_hook=photon.make_gi_hook(maps, cfg))
             if cfg.include_final_gather and maps.get(photon.GLOBAL):
@@ -340,8 +362,9 @@ def render_scene(scene: SceneDesc, dtype=torch.float32,
     chunk_pixels = -(-chunk_pixels // size) * size
     shard = chunk_pixels // size
     path_length = cfg.di_path_length
-    det_table = torch.as_tensor(cmj_points_static(cam.usteps, cam.vsteps)) \
-        .to(device=device, dtype=dtype)
+    with host_sync("upload"):
+        det_table = torch.as_tensor(cmj_points_static(
+            cam.usteps, cam.vsteps)).to(device=device, dtype=dtype)
     use_bucketed = ir.meta.has_reflective or ir.meta.has_refractive
 
     def agreed(t):
@@ -353,19 +376,25 @@ def render_scene(scene: SceneDesc, dtype=torch.float32,
                            torch.distributed.ReduceOp.MAX)
 
     def probe_counts(px, py, ck):
-        counts = spawn_counts(ir, rt, *rays_for_pixels(
-            cam_rt, *primary_samples(cam, cam_rt, det_table, px, py, ck)),
-            path_length, compaction=compaction)
-        return agreed(torch.stack(counts)).tolist() if counts else []
+        with span("render.probe"):
+            counts = spawn_counts(ir, rt, *rays_for_pixels(
+                cam_rt, *primary_samples(cam, cam_rt, det_table, px, py,
+                                         ck)), path_length,
+                compaction=compaction)
+            if not counts:
+                return []
+            with host_sync("probe_counts"):
+                return agreed(torch.stack(counts)).tolist()
 
     def render_chunk(px, py, ck, buckets):
-        res, ovf = pixel_colors(ir, rt, cam_rt,
-                                *primary_samples(cam, cam_rt, det_table, px,
-                                                 py, ck), S,
-                                path_length, buckets=buckets,
-                                compaction=compaction,
-                                rng=None if ck is None else ck.fold(1))
-        return res, bool(agreed(ovf))
+        with span("render.enqueue"):
+            res, ovf = pixel_colors(
+                ir, rt, cam_rt,
+                *primary_samples(cam, cam_rt, det_table, px, py, ck), S,
+                path_length, buckets=buckets, compaction=compaction,
+                rng=None if ck is None else ck.fold(1))
+        with host_sync("overflow"):
+            return res, bool(agreed(ovf))
 
     total = W * H
     n_chunks = math.ceil(total / chunk_pixels)
@@ -385,15 +414,16 @@ def render_scene(scene: SceneDesc, dtype=torch.float32,
     buckets = cache_key = None
     if use_bucketed:
         if mesh is None:
-            cache_key = _bucket_cache_key(ir, cfg, cam, chunk_pixels, dtype,
-                                          path_length)
-            buckets = _bucket_cache_get(cache_key)
+            with span("render.bucket_cache"):
+                cache_key = _bucket_cache_key(ir, cfg, cam, chunk_pixels,
+                                              dtype, path_length)
+                buckets = _bucket_cache_get(cache_key)
         if buckets is None:
             # ONE calibration for the whole render: max per-level spawn
             # counts over five sampled chunks (the top of the image is
             # often background and alone would under-size every bucket),
             # 1.5x margin
-            with timer.phase("probe_buckets"):
+            with span("render.probe_buckets"):
                 samples = sorted({0, n_chunks // 4, n_chunks // 2,
                                   (3 * n_chunks) // 4, n_chunks - 1})
                 counts = [probe_counts(*chunk_arrays(c)) for c in samples]
@@ -411,7 +441,7 @@ def render_scene(scene: SceneDesc, dtype=torch.float32,
                 and snap["canvas"].shape == (total, 3):
             out = snap["canvas"]
             start_chunk = snap["chunks_done"]
-    with timer.phase("render_chunks", n=n_chunks - start_chunk):
+    with span("render.chunks", n=n_chunks - start_chunk):
         for c in range(start_chunk, n_chunks):
             lo = c * chunk_pixels
             hi = min(lo + chunk_pixels, total)
@@ -437,9 +467,10 @@ def render_scene(scene: SceneDesc, dtype=torch.float32,
                       "chunk re-rendered on the exact unrolled path",
                       flush=True)
                 res, _ = render_chunk(px, py, ck, None)
-            if mesh is not None:
-                res = gather_rows(mesh, res)
-            out[lo:hi] = res[: hi - lo].cpu().double().numpy()
+            with host_sync("canvas"):
+                if mesh is not None:
+                    res = gather_rows(mesh, res)
+                out[lo:hi] = res[: hi - lo].cpu().double().numpy()
             if checkpoint_path is not None and rank == 0 and (
                     (c + 1) % checkpoint_every == 0 or c + 1 == n_chunks):
                 save_render_progress(checkpoint_path, out, c + 1, n_chunks)

@@ -17,6 +17,8 @@ from typing import Any, Dict, Tuple
 import numpy as np
 import torch
 
+from fast_ray_tracer_tpu_torch.utils.profiling import host_sync
+
 # analytic primitive type ids (block-contiguous in the tables)
 SPHERE, PLANE, CUBE, CYLINDER, CONE, TOROID = range(6)
 ANALYTIC_TYPE_NAMES = ["sphere", "plane", "cube", "cylinder", "cone", "toroid"]
@@ -173,12 +175,16 @@ class SceneIR:
     def to(self, device, dtype) -> "SceneIR":
         """Move every table to `device`; float tables become `dtype`."""
         out = {}
-        for name in self.table_names():
-            t = getattr(self, name)
-            if t.is_floating_point():
-                out[name] = t.to(device=device, dtype=dtype)
-            else:
-                out[name] = t.to(device=device)
+        tables = self.tables()
+        # a copy of each non-empty table in host memory, each a sync on a
+        # card
+        with host_sync("upload", sum(t.numel() > 0 and t.device.type == "cpu"
+                                     for t in tables.values())):
+            for name, t in tables.items():
+                if t.is_floating_point():
+                    out[name] = t.to(device=device, dtype=dtype)
+                else:
+                    out[name] = t.to(device=device)
         return SceneIR(self.meta, **out)
 
 
