@@ -18,7 +18,7 @@ import time
 import numpy as np
 import torch
 
-from fast_ray_tracer_tpu_torch.ops import compact, mesh
+from fast_ray_tracer_tpu_torch.ops import compact, gather, mesh
 
 COMPACTION = ("compact", "expand")
 MESH = ("mesh_closest", "mesh_shadow")
@@ -106,13 +106,13 @@ def call_ms(device, fn, n: int) -> list:
 
 
 def reset_launches() -> None:
-    for counts in (compact.LAUNCHES, mesh.LAUNCHES):
+    for counts in (compact.LAUNCHES, mesh.LAUNCHES, gather.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
 
 def launches() -> dict:
-    return {**compact.LAUNCHES, **mesh.LAUNCHES}
+    return {**compact.LAUNCHES, **mesh.LAUNCHES, **gather.LAUNCHES}
 
 
 def require_launched(device, counts: dict, names, what: str) -> None:

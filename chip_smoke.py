@@ -106,7 +106,20 @@ Phases, one line each or more:
      TRAIN_STRIP_RTOL but for the rows the value gates prune;
  21. train card against CPU: the gradients at 24x12 in float64, bucketed
      with remat="level", within TRAIN_CARD_CPU_RTOL of each field's
-     largest |g|.
+     largest |g|;
+21b. train gathers: every take_rows call of one forward of the
+     benchmark's reflect_refract train step (800x400, float32) recorded
+     with its real index; on a seeded cotangent of each, the gather
+     backward's kernel (csrc/gather.cu) against its plain version within
+     TABLE_GRAD_RTOL of each slot's sum of |g|, and two kernel calls bit
+     for bit; its device time over the step's calls beside the byte
+     bound, ATen's backward of table[idx], index_add_ and a one-hot
+     matrix product (cuBLAS, deterministic); the train step's gradient
+     pass (remat "level") timed with the kernel and with the one-hot
+     product in turns; then two identical train-step gradients bit for
+     bit, with launches.table_grad_plain at 0. `--table-grad` runs the
+     build, the kernel's size sweep (table_grad_sweep) and this phase
+     alone.
  22. DoF frame: glass_spheres(800, 400) with a circular aperture and 2x2
      camera jitter at seed SEED, float32, one chunk: the launches of all
      four kernels (each compaction kernel at least once), no overflow, a finite canvas, the warm wall (median of
@@ -230,8 +243,10 @@ torch.profiler, and their per-kernel device-time tables go to PATH.
 import argparse
 import concurrent.futures
 import contextlib
+import gc
 import hashlib
 import json
+import math
 import os
 import re
 import shutil
@@ -249,7 +264,7 @@ from fast_ray_tracer_tpu_torch.__main__ import main as cli_main
 from fast_ray_tracer_tpu_torch.io.ppm import (
     construct_ppm, encode_png, png16, read_png, read_ppm,
 )
-from fast_ray_tracer_tpu_torch.ops import compact, mesh, patterns
+from fast_ray_tracer_tpu_torch.ops import compact, gather, mesh, patterns
 from fast_ray_tracer_tpu_torch.ops.intersect import neutralize_rays
 from fast_ray_tracer_tpu_torch.ops.vec import normalize
 from fast_ray_tracer_tpu_torch.parallel import distributed
@@ -280,6 +295,7 @@ from fast_ray_tracer_tpu_torch.scene.demo import (
     primitives_showcase, soft_textured,
 )
 from fast_ray_tracer_tpu_torch.scene.model import replace
+from fast_ray_tracer_tpu_torch.scene.yaml_loader import load_scene
 from fast_ray_tracer_tpu_torch.scene.ir import PAT_UV_TEXTURE
 from fast_ray_tracer_tpu_torch.utils.profiling import PhaseTimer, TRACE_FILE
 
@@ -290,6 +306,7 @@ RAYS_PER_PIXEL = 126      # 63 trace + 63 shadow rays (depth 5, 2 children)
 MW, MH = 600, 240         # the mesh frame
 SRC = "fast_ray_tracer_tpu_torch/csrc/compact.cu"
 MESH_SRC = "fast_ray_tracer_tpu_torch/csrc/mesh.cu"
+GATHER_SRC = "fast_ray_tracer_tpu_torch/csrc/gather.cu"
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                        "out")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
@@ -1419,8 +1436,8 @@ TRAIN_TABLES = ("mat_Ka", "mat_Kd", "mat_Ks", "mat_refl", "mat_Tf",
                 "light_intensity")
 # float32 on the card, an 800x16 strip: each field's gradient sums up to
 # ~25,000 lane terms, in another order through the bucketed trace than
-# through the unrolled one (and through atomics in autograd's scatter-adds
-# of the table gathers): within this share of the field's largest |g|
+# through the unrolled one (and through atomics in whatever scatter-adds
+# autograd still runs): within this share of the field's largest |g|
 TRAIN_STRIP_RTOL = 1e-4
 # float64, 24x12, the card against the CPU: the bound of the CPU tests
 # against the JAX package (the card contracts multiply-adds)
@@ -1428,13 +1445,15 @@ TRAIN_CARD_CPU_RTOL = 1e-9
 
 
 class TrainSet:
-    """glass_spheres' rows [y0, y1) as one batch for the train step, on
-    `device` in `dtype`: the scene split into parameters, buckets from one
-    spawn-count probe at 1.2x margin, and the target frame rendered with
-    mat_Kd scaled by 0.6."""
+    """glass_spheres' (or `scene`'s) rows [y0, y1) as one batch for the
+    train step, on `device` in `dtype`: the scene split into parameters,
+    buckets from one spawn-count probe at 1.2x margin, and the target
+    frame rendered with mat_Kd scaled by 0.6."""
 
-    def __init__(self, device, dtype=torch.float32, w=W, h=H, rows=None):
-        scene = glass_spheres(w, h)
+    def __init__(self, device, dtype=torch.float32, w=W, h=H, rows=None,
+                 scene=None):
+        scene = scene or glass_spheres(w, h)
+        w, h = scene.camera.width, scene.camera.height
         y0, y1 = rows or (0, h)
         self.ir = compile_scene(scene, dtype=dtype, device=device)
         self.rt = build_statics(self.ir, scene.config)
@@ -1500,13 +1519,15 @@ def train_steps(device, reps, remat, rows=None):
     fwd = {}
     compact.LAUNCHES.update(compact=0, expand=0)
     mesh.LAUNCHES.update(mesh_closest=0, mesh_shadow=0)
-    state, loss, ovf = step(state, *ts.args, ts.target,
-                            between=lambda: fwd.update(compact.LAUNCHES))
+    gather.LAUNCHES.update(table_grad=0, table_grad_plain=0)
+    state, loss, ovf = step(
+        state, *ts.args, ts.target,
+        between=lambda: fwd.update(compact.LAUNCHES, **gather.LAUNCHES))
     torch.cuda.synchronize()
     # the first step's gradients, for the two-rank step of phase 37
     grads = {k: torch.zeros_like(p) if p.grad is None
              else p.grad.detach().clone() for k, p in params.items()}
-    total = dict(compact.LAUNCHES)
+    total = {**compact.LAUNCHES, **gather.LAUNCHES}
     bwd = {k: total[k] - fwd[k] for k in total}
     if any(mesh.LAUNCHES.values()):
         raise AssertionError(f"mesh kernels ran in training: {mesh.LAUNCHES}")
@@ -1532,9 +1553,13 @@ def train_steps(device, reps, remat, rows=None):
         f"{[bool(x) for x in ovfs]}")
     if any(bool(x) for x in ovfs):
         raise AssertionError("a train step overflowed its buckets")
-    if min(bwd.values()) < 1 or min(fwd.values()) < 1:
-        raise AssertionError(f"a compaction kernel did not run: forward "
-                             f"{fwd}, backward {bwd}")
+    if min(bwd[k] for k in ("compact", "expand", "table_grad")) < 1 or \
+            min(fwd[k] for k in ("compact", "expand")) < 1:
+        raise AssertionError(f"a compaction or gather kernel did not run: "
+                             f"forward {fwd}, backward {bwd}")
+    if total["table_grad_plain"]:
+        raise AssertionError(f"a table gather took the large-table route: "
+                             f"forward {fwd}, backward {bwd}")
     if not all(np.isfinite(losses)) or not all(
             b < a for a, b in zip(losses, losses[1:])):
         raise AssertionError(f"losses not finite and falling: {losses}")
@@ -1634,6 +1659,282 @@ def check_train_card_vs_cpu(device, w=24, h=12):
         f"bound {TRAIN_CARD_CPU_RTOL}")
     if diff[worst] > TRAIN_CARD_CPU_RTOL:
         raise AssertionError("card gradients differ from the CPU's")
+
+
+# ---------------------------------------------------------------------------
+# the small-table gather backward (ops/gather.py, csrc/gather.cu)
+# ---------------------------------------------------------------------------
+
+# the benchmark's reflect_refract scene: its stripe and checker patterns
+# sit in their material slots, so every gather of the train cell runs
+BENCH_SCENE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "benchmark", "scenes", "reflect_refract.yml")
+# float32 on the card, the kernel's segmented sum against the plain
+# version (index_add_, whose atomics add in another order): each slot
+# within this share of its sum of |g|. Another order of float32 adds moves
+# a sum by a few ulps of that magnitude (1.8e-7 measured at the cell's
+# shapes on an H100); lanes added to the wrong row, column or twice move
+# it by their share of it.
+TABLE_GRAD_RTOL = 1e-5
+
+
+def gather_calls(ts):
+    """(table, idx) of every take_rows call on the grad path of one forward
+    of `ts`, in call order (every remat mode makes the same calls; "level"
+    makes each twice, the recompute's in the backward)."""
+    calls, real = [], gather._TakeRows
+
+    class Recorder:
+        @staticmethod
+        def apply(table, idx):
+            calls.append((table.detach(), idx))
+            return real.apply(table, idx)
+
+    params = ts.fresh()
+    gather._TakeRows = Recorder
+    try:
+        img, ovf = pixel_colors(merge_params(params, ts.static), ts.rt,
+                                ts.cam, *ts.args, 1, ts.depth,
+                                buckets=ts.buckets)
+    finally:
+        gather._TakeRows = real
+    if bool(ovf):
+        raise AssertionError("the recorded forward overflowed its buckets")
+    return calls
+
+
+def _table_grad_bytes(n, table, blocks):
+    """Bytes a call must move (cotangent, int64 index, gradient) and the
+    partial sums' round trip past one block."""
+    kw = table.numel()
+    e = table.element_size()
+    return n * (kw // table.shape[0] * e + 8) + kw * e, \
+        (2 * blocks * kw * e if blocks > 1 else 0)
+
+
+def _profiled_device_us(fn, reps):
+    """Device time (us) a call of fn, over reps calls under the profiler,
+    and the run's kernel events in launch order."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+    return device_us(prof) / reps, kernels
+
+
+def table_grad_onehot(g, idx, shape):
+    """The library formulation of table_grad_ref, timed beside the kernel:
+    a one-hot (N, K) matrix's transpose times the cotangent, in cuBLAS's
+    fixed reduction order."""
+    k, w = shape[0], math.prod(shape[1:])
+    hot = torch.nn.functional.one_hot(torch.where(idx < 0, idx + k, idx),
+                                      k).to(g.dtype)
+    return (hot.T @ g.reshape(g.shape[0], w)).view(shape)
+
+
+# the sweep's tables (K rows of W float32 elements) up to the kernel's cap,
+# at the 800x400 frame's level-0 lane count
+SWEEP_SHAPES = [(k, 16) for k in (1, 2, 5, 10, 14, 20, 28, 42, 56)] + \
+    [(k, 3) for k in (10, 40, 149, 298)] + [(10, 1)]
+SWEEP_N = 320_000
+
+
+def table_grad_sweep(device, reps=20):
+    """The kernel's device time over table sizes (the sweep that set
+    ops/gather.MAX_TABLE_BYTES): for each of SWEEP_SHAPES, float32, N =
+    SWEEP_N, indices uniform over the rows and the same sorted (long runs,
+    as coherent rays give); beside it its byte bound, ATen's backward of
+    table[idx] (zeros + index_put_ with accumulate), index_add_ and the
+    one-hot product. One log line a case; the cases' records."""
+    lib = gather._load()
+    gen = torch.Generator(device=device).manual_seed(5)
+    n, out = SWEEP_N, []
+    for k, w in SWEEP_SHAPES:
+        table = torch.zeros((k, w), device=device)
+        if table.numel() * 4 > gather.MAX_TABLE_BYTES:
+            raise AssertionError(f"sweep shape {(k, w)} past the cap")
+        g = torch.randn((n, w), generator=gen, device=device)
+        uniform = torch.randint(0, k, (n,), generator=gen, device=device)
+        for order, idx in (("uniform", uniform),
+                           ("runs", torch.sort(uniform).values)):
+            got = gather.table_grad_cuda(g, idx, table.shape)
+            want = gather.table_grad_ref(g.double(), idx, table.shape)
+            blocks = lib.frt_table_grad_blocks(n, k, w, 4, device.index)
+            need, _ = _table_grad_bytes(n, table, blocks)
+            rec = {"k": k, "w": w, "table_bytes": k * w * 4, "order": order,
+                   "blocks": blocks,
+                   "max_abs_err_vs_f64": float((got.double() - want)
+                                               .abs().max()),
+                   "bound_us": need / HBM_BYTES_PER_S * 1e6}
+            for name, fn in (
+                    ("kernel", lambda: gather.table_grad_cuda(
+                        g, idx, table.shape)),
+                    ("index_put", lambda: torch.zeros_like(table).index_put_(
+                        (idx,), g, accumulate=True)),
+                    ("index_add", lambda: torch.zeros_like(table).index_add_(
+                        0, idx, g)),
+                    ("onehot", lambda: table_grad_onehot(g, idx,
+                                                         table.shape))):
+                rec[f"{name}_us"] = _profiled_device_us(fn, reps)[0]
+            log("table-grad-sweep", json.dumps(rec))
+            out.append(rec)
+    return out
+
+
+def check_table_grad(device, reps=20, steps=8):
+    """The gather backward on the train cell's own calls: the benchmark's
+    reflect_refract at 800x400 in float32. Every take_rows call of one
+    forward is recorded with its real index; a seeded cotangent of its
+    shape then goes through the kernel and through the plain version
+    (within TABLE_GRAD_RTOL), the kernel twice (bitwise), and each call is
+    timed on the device beside its byte bound, ATen's backward of
+    table[idx] (zeros + index_put_ with accumulate), index_add_ and the
+    one-hot product (table_grad_onehot). The step's gradient pass (remat
+    "level", its overflow read back) is timed `steps` times each with the
+    kernel and with the one-hot product in its place, in turns. Then two
+    identical train-step gradients must be bitwise equal, with the
+    large-table route never taken."""
+    lib = gather._load()
+    if (lib.frt_table_grad_max_bytes(), lib.frt_table_grad_max_row()) != \
+            (gather.MAX_TABLE_BYTES, gather.MAX_ROW):
+        raise AssertionError("ops/gather.MAX_TABLE_BYTES or MAX_ROW is not "
+                             "the kernel's own limit")
+    ts = TrainSet(device, scene=load_scene(BENCH_SCENE))
+    calls = [(t, i) for t, i in gather_calls(ts) if i.numel()]
+    gen = torch.Generator(device=device).manual_seed(11)
+    cases, worst, worst_exact = [], 0.0, 0.0
+    for table, idx in calls:
+        n = idx.shape[0]
+        g = torch.randn((n, *table.shape[1:]), generator=gen, device=device,
+                        dtype=table.dtype)
+        got = gather.table_grad_cuda(g, idx, table.shape)
+        again = gather.table_grad_cuda(g, idx, table.shape)
+        if not torch.equal(got, again):
+            raise AssertionError(f"two kernel calls differ: {tuple(table.shape)}"
+                                 f" N={n}")
+        plain = gather.table_grad_ref(g, idx, table.shape)
+        exact = gather.table_grad_ref(g.double(), idx, table.shape)
+        mag = gather.table_grad_ref(g.double().abs(), idx, table.shape)
+        scale = mag.clamp_min(1e-30)
+        worst = max(worst, float(((got - plain).abs() / scale).max()))
+        worst_exact = max(worst_exact,
+                          float(((got.double() - exact).abs() / scale).max()))
+        kw = table.numel()
+        blocks = lib.frt_table_grad_blocks(n, table.shape[0], kw //
+                                           table.shape[0],
+                                           table.element_size(), device.index)
+        cases.append((table, idx, g, blocks))
+    # device time of each variant over the whole step's calls
+    def run(variant):
+        def fn():
+            for table, idx, g, _ in cases:
+                if variant == "kernel":
+                    gather.table_grad_cuda(g, idx, table.shape)
+                elif variant == "index_put":
+                    torch.zeros_like(table).index_put_((idx,), g,
+                                                       accumulate=True)
+                elif variant == "index_add":
+                    torch.zeros_like(table).index_add_(0, idx, g)
+                else:
+                    table_grad_onehot(g, idx, table.shape)
+        return fn
+    totals, kernels = {}, None
+    for variant in ("kernel", "index_put", "index_add", "onehot"):
+        us, ev = _profiled_device_us(run(variant), reps)
+        totals[variant] = us
+        if variant == "kernel":
+            kernels = ev
+    # per call: its kernel events (one, or two past one block) of the
+    # first repetition
+    per_call, k = [], 0
+    for table, idx, g, blocks in cases:
+        m = 1 + (blocks > 1)
+        names = [e.name for e in kernels[k:k + m]]
+        if not all("slice_kernel" in x or "sum_kernel" in x for x in names):
+            raise AssertionError(f"unexpected kernels in the profile: {names}")
+        us = sum(e.time_range.elapsed_us() for e in kernels[k:k + m])
+        k += m
+        need, extra = _table_grad_bytes(idx.shape[0], table, blocks)
+        per_call.append((us, need / HBM_BYTES_PER_S * 1e6,
+                         (need + extra) / HBM_BYTES_PER_S * 1e6,
+                         idx.shape[0], tuple(table.shape), blocks))
+    need_us = sum(c[1] for c in per_call)
+    kern_us = sum(c[0] for c in per_call)
+    longest = max(per_call)
+    log("table-grad", f"{len(cases)} take_rows calls of one forward "
+        f"(reflect_refract 800x400 float32; N {min(c[3] for c in per_call)}"
+        f"-{max(c[3] for c in per_call)}; tables "
+        f"{sorted(set(c[4] for c in per_call))}): kernel vs plain "
+        f"(index_add_) largest share of a slot's sum |g| {worst:.3e} "
+        f"(bound {TABLE_GRAD_RTOL}), kernel vs float64 exact {worst_exact:.3e}"
+        f"; two kernel calls bitwise equal on every call")
+    log("table-grad", f"device time over the step's calls: kernel "
+        f"{totals['kernel']:.1f} us (the calls' kernels alone {kern_us:.1f} "
+        f"us, byte bound {need_us:.1f} us: {100 * need_us / kern_us:.1f}% "
+        f"of it), index_put_ (ATen's backward of table[idx]) "
+        f"{totals['index_put']:.1f} us, index_add_ {totals['index_add']:.1f}"
+        f" us, one-hot product {totals['onehot']:.1f} us; longest call {longest[0]:.2f} us (N={longest[3]}, table "
+        f"{longest[4]}, {longest[5]} blocks, bound {longest[1]:.2f} us, "
+        f"{longest[2]:.2f} us with the partial sums)")
+    if worst > TABLE_GRAD_RTOL:
+        raise AssertionError("the kernel's gradient differs from the plain "
+                             "version's")
+    # the step's gradient pass with the kernel and with the one-hot
+    # product, in turns, each from a collected heap; walls and peak memory
+    walls = {"kernel": [], "onehot": []}
+    peaks = {k: 0 for k in walls}
+    real = gather.table_grad_cuda
+    try:
+        for i in range(steps + 1):
+            for variant in walls:
+                gather.table_grad_cuda = real if variant == "kernel" \
+                    else table_grad_onehot
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(device)
+                t0 = time.perf_counter()
+                ts.grads(buckets=ts.buckets, remat="level")
+                torch.cuda.synchronize()
+                if i:
+                    walls[variant].append(time.perf_counter() - t0)
+                peaks[variant] = max(peaks[variant],
+                                     torch.cuda.max_memory_allocated(device))
+    finally:
+        gather.table_grad_cuda = real
+    step_ms = {k: statistics.median(v) * 1e3 for k, v in walls.items()}
+    log("table-grad", "the step's gradient pass (remat 'level'), walls in "
+        "ms: " + "; ".join(f"{k} median {step_ms[k]:.1f} of "
+                          f"{[round(t * 1e3, 1) for t in v]}, peak "
+                          f"{peaks[k] / 2**30:.4f} GiB"
+                          for k, v in walls.items()))
+    # two identical gradient passes of the cell's step, bitwise
+    gather.LAUNCHES.update(table_grad=0, table_grad_plain=0)
+    first = ts.grads(buckets=ts.buckets, remat="level")
+    second = ts.grads(buckets=ts.buckets, remat="level")
+    counts = dict(gather.LAUNCHES)
+    differ = [k for k in first if not torch.equal(first[k], second[k])]
+    log("table-grad", f"two identical train-step gradients (remat "
+        f"'level'): differing tables {differ}; launches {counts}")
+    if differ or counts["table_grad_plain"] or counts["table_grad"] < 1:
+        raise AssertionError("the step's gradients are not reproducible, or "
+                             "a gather took the large-table route")
+    return {"max_abs_err": worst, "ms": kern_us / 1e3,
+            "bound_ms": need_us / 1e3, "bound_by": "bytes",
+            "plain_ms": totals["index_add"] / 1e3,
+            "library_ms": totals["index_put"] / 1e3,
+            "onehot_ms": totals["onehot"] / 1e3,
+            "grad_pass_ms": step_ms["kernel"],
+            "grad_pass_onehot_ms": step_ms["onehot"],
+            "grad_pass_peak_gib": peaks["kernel"] / 2**30,
+            "grad_pass_onehot_peak_gib": peaks["onehot"] / 2**30,
+            "launches_train_bwd": counts["table_grad"] // 2}
 
 
 # ---------------------------------------------------------------------------
@@ -2027,6 +2328,12 @@ def _reset_launches():
     mesh.LAUNCHES.update(mesh_closest=0, mesh_shadow=0)
 
 
+def _fb_counts():
+    """The launch counts with the gather backward's (a frame's forward
+    never counts these)."""
+    return {**_launch_counts(), **gather.LAUNCHES}
+
+
 def fb_frame(cg):
     """One forward+backward of the whole frame, chunk by chunk, the chunk
     gradients accumulating into the parameters' .grad, one host sync at
@@ -2035,17 +2342,18 @@ def fb_frame(cg):
     and read without a sync)."""
     for p in cg.params.values():
         p.grad = None
-    fwd = {k: 0 for k in _launch_counts()}
+    fwd = {k: 0 for k in _fb_counts()}
     bwd = dict(fwd)
     losses, ovfs = [], []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for c in range(cg.n_chunks):
         _reset_launches()
+        gather.LAUNCHES.update(table_grad=0, table_grad_plain=0)
         loss, ovf = cg.loss(c)
-        f = _launch_counts()
+        f = _fb_counts()
         loss.backward()
-        b = _launch_counts()
+        b = _fb_counts()
         for k in fwd:
             fwd[k] += f[k]
             bwd[k] += b[k] - f[k]
@@ -2115,8 +2423,8 @@ def cornell_fwd_bwd(device):
     if peak > FB_PEAK_BUDGET:
         raise AssertionError("the Cornell forward+backward peaked past its "
                              "budget")
-    if min(fwd.values()) < 1 or min(bwd[k] for k in ("compact",
-                                                     "expand")) < 1:
+    if min(fwd[k] for k in (*compact.LAUNCHES, *mesh.LAUNCHES)) < 1 or \
+            min(bwd[k] for k in ("compact", "expand", "table_grad")) < 1:
         raise AssertionError(f"a kernel of the forward+backward never ran: "
                              f"forward {fwd}, backward {bwd}")
     return cg, {"ms": wall * 1e3, "chunk_ms": wall * 1e3 / cg.n_chunks,
@@ -2733,6 +3041,9 @@ def main():
                     help="write torch.profiler's per-kernel tables of the "
                     "level-0 compaction calls and one warm frame of each "
                     "render here")
+    ap.add_argument("--table-grad", action="store_true",
+                    help="build, then run only the gather backward's size "
+                    "sweep and phase 21b")
     ap.add_argument("--rank", type=int, default=None,
                     help=argparse.SUPPRESS)    # phases 34-37's workers
     ap.add_argument("--store", default=None, help=argparse.SUPPRESS)
@@ -2776,6 +3087,14 @@ def main():
     if not native.available():
         raise AssertionError("the host C++ walks did not build")
     log("build", "host C++ walks (native/) built: compile_scene takes them")
+    if args.table_grad:
+        sweep = table_grad_sweep(device)
+        tg = check_table_grad(device)
+        print(smi, flush=True)
+        print(json.dumps({"table_grad_sweep": sweep, "table_grad": tg}),
+              flush=True)
+        shutil.rmtree(cache_dir, ignore_errors=True)
+        return 0
 
     # 3. kernels at the level-0 shape, B from the calibration
     scene = glass_spheres(W, H)
@@ -2790,14 +3109,19 @@ def main():
 
     # 4. render: the flagship path, counted
     compact.LAUNCHES.update(compact=0, expand=0)
+    gather.LAUNCHES.update(table_grad=0, table_grad_plain=0)
     stats = {}
     canvas, cold = frame(device, stats=stats)
     launches = dict(compact.LAUNCHES)
+    flag_gather = dict(gather.LAUNCHES)
     log("render", f"800x400 depth 5 float32: launches {launches}, "
         f"buckets {stats['buckets']}, escalations {stats['escalations']}, "
         f"exact chunks {stats['exact_chunks']}, first call {cold:.3f} s")
     if min(launches.values()) < 1:
         raise AssertionError(f"a kernel of the path never ran: {launches}")
+    if any(flag_gather.values()):
+        raise AssertionError(f"a frame without autograd took the gathers' "
+                             f"grad path: {flag_gather}")
     if stats["escalations"] or stats["exact_chunks"]:
         raise AssertionError("bucket overflow after calibration")
     if canvas.shape != (H, W, 3) or not bool(torch.isfinite(
@@ -2886,7 +3210,8 @@ def main():
               for remat in ("level", "none")}
     check_train_strip(device)
     check_train_card_vs_cpu(device)
-    log("train", f"phases 19-21 took {time.perf_counter() - t0:.1f} s")
+    tgstats = check_table_grad(device)
+    log("train", f"phases 19-21b took {time.perf_counter() - t0:.1f} s")
 
     # 22-27. the stochastic camera path, the photon pass, the GI frame
     # counted and its mesh launches against the plain versions, its
@@ -2986,6 +3311,14 @@ def main():
                      "launches_cornell_fwd_bwd_fwd": fb["fwd"][f"mesh_{key}"],
                      "launches_cornell_fwd_bwd_bwd": fb["bwd"][f"mesh_{key}"],
                      **ranked[f"mesh_{key}"], **mstats[key]})
+    rows.append({"name": "take_rows backward (table_grad)", "route": "cuda",
+                 "source": GATHER_SRC, "replaces": "none (XLA's scatter-add "
+                 "in the JAX package)", "launches": flag_gather["table_grad"],
+                 "launches_train_fwd": tstats["level"]["fwd"]["table_grad"],
+                 "launches_train_bwd": tstats["level"]["bwd"]["table_grad"],
+                 "launches_cornell_fwd_bwd_bwd": fb["bwd"]["table_grad"],
+                 "launches_reflect_refract_bwd":
+                     tgstats.pop("launches_train_bwd"), **tgstats})
     shutil.rmtree(cache_dir, ignore_errors=True)
     log("done", f"the whole script took {time.perf_counter() - started:.1f} "
         f"s")

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from fast_ray_tracer_tpu_torch.constants import EPSILON
+from fast_ray_tracer_tpu_torch.ops.gather import take_rows
 from fast_ray_tracer_tpu_torch.ops.mesh import moller_trumbore
 from fast_ray_tracer_tpu_torch.ops.quartic import solve_quartic
 from fast_ray_tracer_tpu_torch.ops.vec import dot3
@@ -238,7 +239,8 @@ def _triangle_t(orig, dirs, p1, e1, e2):
 
 def triangle_uv_at(ir: SceneIR, tri_idx, orig, dirs):
     """Barycentric (u, v) of triangle tri_idx (R,) along each ray."""
-    comp = [ir.tri_p1[tri_idx], ir.tri_e1[tri_idx], ir.tri_e2[tri_idx]]
+    comp = [take_rows(ir.tri_p1, tri_idx), take_rows(ir.tri_e1, tri_idx),
+            take_rows(ir.tri_e2, tri_idx)]
     _, u, v, _ = moller_trumbore(
         [orig[:, k] for k in range(3)], [dirs[:, k] for k in range(3)],
         [a[:, k] for a in comp for k in range(3)])

@@ -29,6 +29,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from fast_ray_tracer_tpu_torch.constants import EPSILON
+from fast_ray_tracer_tpu_torch.ops.gather import take_rows
 from fast_ray_tracer_tpu_torch.ops.perlin import _smooth3d, to_int32_saturated
 from fast_ray_tracer_tpu_torch.ops.vec import dot3, xform_points
 from fast_ray_tracer_tpu_torch.scene import ir as IR
@@ -66,14 +67,17 @@ def build_shape_ctx(ir: SceneIR, prim) -> ShapeCtx:
         stype = torch.where((a_idx >= start) & (a_idx < start + count),
                             typ, stype)
     if not nt:
-        return ShapeCtx(obj_inv=ir.inv_tf[a_idx], shape_type=stype,
-                        params=ir.prim_params[a_idx])
+        return ShapeCtx(obj_inv=take_rows(ir.inv_tf, a_idx),
+                        shape_type=stype,
+                        params=take_rows(ir.prim_params, a_idx))
     is_tri = prim >= na
     t_idx = (prim - na).clamp(0, nt - 1)
     eye = torch.eye(4, dtype=ir.inv_tf.dtype, device=prim.device)
     if na:
-        obj_inv = torch.where(is_tri[:, None, None], eye, ir.inv_tf[a_idx])
-        params = torch.where(is_tri[:, None], 0.0, ir.prim_params[a_idx])
+        obj_inv = torch.where(is_tri[:, None, None], eye,
+                              take_rows(ir.inv_tf, a_idx))
+        params = torch.where(is_tri[:, None], 0.0,
+                             take_rows(ir.prim_params, a_idx))
     else:
         obj_inv = eye.expand(prim.shape[0], 4, 4)
         params = torch.zeros((prim.shape[0], 4), dtype=eye.dtype,
@@ -81,9 +85,12 @@ def build_shape_ctx(ir: SceneIR, prim) -> ShapeCtx:
     return ShapeCtx(
         obj_inv=obj_inv, shape_type=torch.where(is_tri, SHAPE_TRIANGLE, stype),
         params=params,
-        tri_p1=ir.tri_p1[t_idx], tri_e1=ir.tri_e1[t_idx],
-        tri_e2=ir.tri_e2[t_idx], tri_t1=ir.tri_t1[t_idx],
-        tri_t2=ir.tri_t2[t_idx], tri_t3=ir.tri_t3[t_idx],
+        tri_p1=take_rows(ir.tri_p1, t_idx),
+        tri_e1=take_rows(ir.tri_e1, t_idx),
+        tri_e2=take_rows(ir.tri_e2, t_idx),
+        tri_t1=take_rows(ir.tri_t1, t_idx),
+        tri_t2=take_rows(ir.tri_t2, t_idx),
+        tri_t3=take_rows(ir.tri_t3, t_idx),
         tri_use_tex=ir.tri_use_tex[t_idx])
 
 
@@ -234,8 +241,8 @@ def _eval_uv(ir: SceneIR, pid, u, v, kinds):
     """A uv pattern row at (u, v); pid: (R,) (clamped here)."""
     pid = pid.clamp(0, max(ir.meta.n_patterns - 1, 0))
     ptype = ir.pat_type[pid]
-    colors = ir.pat_colors[pid]          # (R,5,3)
-    params = ir.pat_params[pid]
+    colors = take_rows(ir.pat_colors, pid)      # (R,5,3)
+    params = take_rows(ir.pat_params, pid)
     a, b = colors[:, 0], colors[:, 1]
     conds, outs = [], []
 
@@ -259,7 +266,7 @@ def _eval_uv(ir: SceneIR, pid, u, v, kinds):
 
     if IR.PAT_UV_TEXTURE in kinds:
         conds.append((ptype == IR.PAT_UV_TEXTURE)[..., None])
-        outs.append(ir.tex_data[texel_index(ir, pid, u, v)])
+        outs.append(take_rows(ir.tex_data, texel_index(ir, pid, u, v)))
 
     if IR.PAT_UV_GRADIENT in kinds:
         conds.append((ptype == IR.PAT_UV_GRADIENT)[..., None])
@@ -299,14 +306,14 @@ def eval_pattern(ir: SceneIR, pid, ctx: ShapeCtx, world_pt, ov_a=None,
     valid = pid >= 0
     pid_c = pid.clamp(0, meta.n_patterns - 1)
     ptype = ir.pat_type[pid_c]
-    colors = ir.pat_colors[pid_c]
+    colors = take_rows(ir.pat_colors, pid_c)
     a = colors[:, 0] if ov_a is None else ov_a
     b = colors[:, 1] if ov_b is None else ov_b
     conds, outs = [], []
 
     if kinds & _CONCRETE or IR.PAT_MAP in kinds:
         obj_pt = xform_points(ctx.obj_inv, world_pt)
-        pat_pt = xform_points(ir.pat_inv_tf[pid_c], obj_pt)
+        pat_pt = xform_points(take_rows(ir.pat_inv_tf, pid_c), obj_pt)
         x, y, z = pat_pt[..., 0], pat_pt[..., 1], pat_pt[..., 2]
 
     def lerp(frac):
@@ -358,7 +365,7 @@ def eval_pattern(ir: SceneIR, pid, ctx: ShapeCtx, world_pt, ov_a=None,
         if IR.PAT_PERTURBED in kinds:
             # 3x noise domain warp of the world point (pattern.c:78-116):
             # the x, y and z warps sample the noise at z, z +- 1, z +- 2
-            params = ir.pat_params[pid_c]
+            params = take_rows(ir.pat_params, pid_c)
             freq, scale, persist = params[:, 0], params[:, 1], params[:, 2]
             seed, octaves = params[:, 4], params[:, 3]
             px, py, pz = world_pt[..., 0], world_pt[..., 1], world_pt[..., 2]

@@ -36,6 +36,7 @@ from torch.utils.checkpoint import (
 
 from fast_ray_tracer_tpu_torch.constants import EPSILON, SQRT3
 from fast_ray_tracer_tpu_torch.ops import compact, mesh
+from fast_ray_tracer_tpu_torch.ops.gather import take_rows
 from fast_ray_tracer_tpu_torch.ops.intersect import (
     Hit, apply_csg_filter, closest_hit, containers_n1_n2, csg_device_tables,
     csg_static_tables, intersect_candidates, neutralize_rays,
@@ -173,7 +174,8 @@ def mesh_hit_t(ir: SceneIR, t, idx, orig, dirs):
             or ir.tri_e2.requires_grad):
         return t
     i = idx.long()
-    comp = [ir.tri_p1[i], ir.tri_e1[i], ir.tri_e2[i]]
+    comp = [take_rows(ir.tri_p1, i), take_rows(ir.tri_e1, i),
+            take_rows(ir.tri_e2, i)]
     t_re, _, _, _ = mesh.moller_trumbore(
         [orig[:, k] for k in range(3)], [dirs[:, k] for k in range(3)],
         [a[:, k] for a in comp for k in range(3)])
@@ -273,19 +275,21 @@ def prepare_computations(ir: SceneIR, rt: RenderStatics, orig, dirs,
         patc = eval_pattern(ir, pid, ctx, over_point)
         return torch.where((pid >= 0)[:, None], patc, const)
 
-    m_Tr = ir.mat_Tr[mat]
+    m_Tr = take_rows(ir.mat_Tr, mat)
     ones3 = torch.ones((1, 3), dtype=t.dtype, device=t.device)
     return Comps(
         valid=hit.valid, t=hit.t, prim=prim, p=p, eyev=eyev,
         normalv=normalv, reflectv=reflectv, over_point=over_point,
         under_point=under_point, n1=n1, n2=n2, inside=inside, mat=mat,
-        over_Ka=slot_color(IR.SLOT_KA, ir.mat_Ka[mat]),
-        over_Kd=slot_color(IR.SLOT_KD, ir.mat_Kd[mat]),
-        over_Ks=slot_color(IR.SLOT_KS, ir.mat_Ks[mat]),
-        over_refl=slot_color(IR.SLOT_REFL, ir.mat_refl[mat]),
-        over_Ns=slot_color(IR.SLOT_NS, ir.mat_Ns[mat][:, None] * ones3)[:, 0],
+        over_Ka=slot_color(IR.SLOT_KA, take_rows(ir.mat_Ka, mat)),
+        over_Kd=slot_color(IR.SLOT_KD, take_rows(ir.mat_Kd, mat)),
+        over_Ks=slot_color(IR.SLOT_KS, take_rows(ir.mat_Ks, mat)),
+        over_refl=slot_color(IR.SLOT_REFL, take_rows(ir.mat_refl, mat)),
+        over_Ns=slot_color(IR.SLOT_NS,
+                           take_rows(ir.mat_Ns, mat)[:, None] * ones3)[:, 0],
         over_d=slot_color(IR.SLOT_D, (1.0 - m_Tr)[:, None] * ones3)[:, 0],
-        tf=ir.mat_Tf[mat], tr=m_Tr, refl_flag=ir.mat_reflective[mat],
+        tf=take_rows(ir.mat_Tf, mat), tr=m_Tr,
+        refl_flag=ir.mat_reflective[mat],
         ctx=ctx)
 
 

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from fast_ray_tracer_tpu_torch.constants import EPSILON
+from fast_ray_tracer_tpu_torch.ops.gather import take_rows
 from fast_ray_tracer_tpu_torch.ops.patterns import ShapeCtx, eval_pattern
 from fast_ray_tracer_tpu_torch.ops.vec import (
     normalize, xform_normals, xform_points,
@@ -101,8 +102,9 @@ def normal_at(ir: SceneIR, ctx: ShapeCtx, prim, world_pt, tri_u, tri_v,
         na = meta.n_analytic
         t_idx = (prim - na).clamp(0, meta.n_triangles - 1)
         w = (1.0 - tri_u - tri_v)[:, None]
-        tri_n = (w * ir.tri_n1[t_idx] + tri_u[:, None] * ir.tri_n2[t_idx]
-                 + tri_v[:, None] * ir.tri_n3[t_idx])
+        tri_n = (w * take_rows(ir.tri_n1, t_idx)
+                 + tri_u[:, None] * take_rows(ir.tri_n2, t_idx)
+                 + tri_v[:, None] * take_rows(ir.tri_n3, t_idx))
         world = torch.where((prim >= na)[:, None], tri_n, world)
     world = normalize(world)
     if mat_bump_pid is not None and meta.any_bump:

@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from fast_ray_tracer_tpu_torch import colors as colorlib
+from fast_ray_tracer_tpu_torch.ops.gather import take_rows
 from fast_ray_tracer_tpu_torch.ops.vec import dot3
 from fast_ray_tracer_tpu_torch.render.integrator import (
     coordinate_frame, prepare_computations, refract_active,
@@ -552,7 +553,7 @@ def live_photon_powers(pm: PhotonMap, ir: SceneIR):
     end divides by power_div as the map build does, so at the traced
     values the result is the stored `power` bit for bit."""
     L = pm.prov_mat.shape[1]
-    pw = ir.light_intensity[pm.prov_light]
+    pw = take_rows(ir.light_intensity, pm.prov_light)
 
     def safe(a):
         return torch.where(a > 0, a, 1.0)[:, None]
@@ -560,7 +561,7 @@ def live_photon_powers(pm: PhotonMap, ir: SceneIR):
         mat = pm.prov_mat[:, step]
         code = pm.prov_code[:, step]
         base = (code % EV_MAPPED)[:, None]
-        kd, refl = ir.mat_Kd[mat], ir.mat_refl[mat]
+        kd, refl = take_rows(ir.mat_Kd, mat), take_rows(ir.mat_refl, mat)
         if pm.prov_samp is not None:
             mapped = (code >= EV_MAPPED)[:, None]
             samp = pm.prov_samp[:, step]
@@ -569,7 +570,8 @@ def live_photon_powers(pm: PhotonMap, ir: SceneIR):
         pw = torch.where(
             base == EV_KD, kd * pw, torch.where(
                 base == EV_SPEC, pw / safe(refl.mean(-1)), torch.where(
-                    base == EV_TRANS, pw / safe(ir.mat_Tf[mat].mean(-1)),
+                    base == EV_TRANS,
+                    pw / safe(take_rows(ir.mat_Tf, mat).mean(-1)),
                     pw)))
     # a true division by a device tensor: a CUDA division by a host scalar
     # multiplies by its reciprocal, which would move the last bit
