@@ -80,8 +80,10 @@ def set_environment(root: str) -> None:
     fixed paths; one host thread for torch's and OpenMP's CPU work, and
     the process (the threads it starts after this) on the last two of its
     cores. The frames are host-bound, and a parallel region on a shared
-    host waits for its slowest thread: one thread on fixed cores keeps a
-    run's host work steady."""
+    host waits for its slowest thread. A sandbox may take the affinity and
+    not honour it (gVisor reports every thread on core 0): the host's own
+    speed, which no setting here fixes, then sets the runs' spread
+    (PERF.md section 5)."""
     os.environ["OMP_NUM_THREADS"] = "1"
     cores = sorted(os.sched_getaffinity(0))
     os.sched_setaffinity(0, cores[-2:])

@@ -6,7 +6,9 @@ Set-up builds the job and its train step (the port's make_train_step,
 Adam) and takes its first `first_steps` steps, the same object the
 window then drives: whole steps (forward, backward, Adam, the loss read
 back) on the following batches, from the evolving state, until the clock
-passes `--seconds`. `step_s` is the window's wall over its steps. A step
+passes `--seconds`. `step_s` is the window's wall over its steps; the
+run's `info` keeps each step's wall and what the host did in the window
+(benchmark/host.py: collections, context switches, threads). A step
 that overflows its buckets or whose loss is not finite has failed. After
 the window the reference follows the first `reference_steps` steps (the
 configuration's `train`, else all of them) on its own job
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 from benchmark import generator as g
+from benchmark import host
 from benchmark import trace as tr
 from benchmark.reference import compare
 from benchmark.trace import sync
@@ -210,38 +213,46 @@ def run(ctx) -> dict:
         n_trace = int(cfg["trace_units"]["train"])
         expect = max(1.0, ctx.seconds / max(mine["walls"][-1], 1e-6))
         trace.every = max(1, int(round(expect / n_trace)))
-    failed, steps, profiled = 0, 0, 0
-    setup_s = time.perf_counter() - ctx.t_start
-    t0 = time.perf_counter()
-    while True:
-        px, py, uv, ap, target, rng = job.batch(first + steps)
-        if ctx.trace and steps % trace.every == trace.every // 2 \
-                and profiled < n_trace:
-            mark = []
-            with tr.profiled(trace, dev, mark):
-                state, loss, ovf = step(
-                    state, px, py, uv, ap, target, rng=rng,
-                    between=lambda: mark.append(time.time_ns()))
+    failed, steps, profiled, walls = 0, 0, 0, []
+    with host.Collections() as gcs:
+        before = host.snapshot()
+        setup_s = time.perf_counter() - ctx.t_start
+        t0 = last = time.perf_counter()
+        while True:
+            px, py, uv, ap, target, rng = job.batch(first + steps)
+            if ctx.trace and steps % trace.every == trace.every // 2 \
+                    and profiled < n_trace:
+                mark = []
+                with tr.profiled(trace, dev, mark):
+                    state, loss, ovf = step(
+                        state, px, py, uv, ap, target, rng=rng,
+                        between=lambda: mark.append(time.time_ns()))
+                    bad = bool(ovf) or not np.isfinite(float(loss))
+                profiled += 1
+            else:
+                state, loss, ovf = step(state, px, py, uv, ap, target,
+                                        rng=rng)
                 bad = bool(ovf) or not np.isfinite(float(loss))
-            profiled += 1
-        else:
-            state, loss, ovf = step(state, px, py, uv, ap, target, rng=rng)
-            bad = bool(ovf) or not np.isfinite(float(loss))
-        failed += bad
-        steps += 1
-        if time.perf_counter() - t0 >= ctx.seconds:
-            break
-    window = time.perf_counter() - t0
+            failed += bad
+            steps += 1
+            now = time.perf_counter()
+            walls.append(now - last)
+            last = now
+            if now - t0 >= ctx.seconds:
+                break
+        window = time.perf_counter() - t0
+        after = host.snapshot()
     sync(dev)
     peak = g.peak_bytes(dev)
     out = {"attempted": steps, "failed": failed,
            "metrics": {"setup_s": setup_s, "step_s": window / steps,
                        "peak_mem_gib": peak / g.GIB},
            "memory_peak_bytes": max(peak, setup_peak),
-           "info": {"steps": steps, "window_s": window,
-                    "first_losses": mine["losses"],
-                    "first_overflow": mine["overflow"],
-                    "first_walls": mine["walls"]}}
+           "info": dict({"steps": steps, "window_s": window,
+                         "first_losses": mine["losses"],
+                         "first_overflow": mine["overflow"],
+                         "first_walls": mine["walls"], "step_s": walls},
+                        **gcs.summary(), **host.delta(before, after))}
     if ctx.trace:
         out["trace"] = trace
 

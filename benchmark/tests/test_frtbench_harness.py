@@ -120,3 +120,44 @@ def test_command_on_the_card(card):
     assert out.returncode == 0, out.stderr[-3000:]
     line = json.loads(out.stdout.strip().splitlines()[-1])
     assert list(line)[:5] == KEYS and line["correct"] is True
+
+
+def test_step_s_bound_in_range():
+    """step_s's bound: five times the spread of the final harness's runs,
+    never under 5% nor over the 25% cap (PERF.md section 2)."""
+    bound = {m["name"]: m["bound"] for m in _bench()["end_to_end"]}["step_s"]
+    assert 0.05 <= bound <= 0.25
+
+
+def test_host_readings_span_the_window():
+    import gc
+    import time
+
+    from benchmark import host
+    with host.Collections() as gcs:
+        a = host.snapshot()
+        t = time.thread_time()
+        while time.thread_time() - t < 0.05:  # a few clock ticks of CPU
+            junk = [[k] for k in range(1000)]
+        gc.collect()
+        b = host.snapshot()
+    del junk
+    s = gcs.summary()
+    assert s["gc_count"][2] >= 1 and s["gc_pause_s"][2] > 0
+    d = host.delta(a, b)
+    assert d["wall_to"] >= d["wall_from"]
+    assert {"voluntary_ctxt_switches", "nonvoluntary_ctxt_switches",
+            "threads"} <= set(d)
+    # this thread ran: its row carries its user and system CPU seconds
+    assert any(r[2] + r[3] > 0 for r in d["threads"])
+
+
+def test_train_info_has_each_step_and_the_collections(capsys):
+    r = small_run("reflect_refract.train", trace=0, seconds=0.5)
+    line = next(x for x in capsys.readouterr().err.splitlines()
+                if x.startswith("benchmark: info "))
+    info = json.loads(line[len("benchmark: info "):])
+    assert len(info["step_s"]) == info["steps"] == r["attempted"]
+    assert abs(sum(info["step_s"]) - info["window_s"]) < 0.05
+    assert len(info["gc_count"]) == len(info["gc_pause_s"]) == 3
+    assert info["threads"]
