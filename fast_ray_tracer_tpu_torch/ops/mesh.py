@@ -33,10 +33,11 @@ held to bit for bit:
 - on equal t the lowest triangle index wins, independent of visit order.
 The plain versions gather the (ray, supercluster) pairs that pass the
 slab test, in chunks, so memory stays bounded; they sync with the host
-once per chunk and may be slow. None of the TPU kernel's gates carry over
-(f32 only, ranks below 2^24, Nsc <= 16384, the VMEM budget): the kernels
-take float32 and float64 and ranks as int32. `LAUNCHES` counts kernel
-launches per query.
+once per chunk (the tracer's site `mesh_pairs`, as does `containers`,
+which runs on every device) and may be slow. None of the TPU kernel's
+gates carry over (f32 only, ranks below 2^24, Nsc <= 16384, the VMEM
+budget): the kernels take float32 and float64 and ranks as int32.
+`LAUNCHES` counts kernel launches per query.
 
 Neither the kernels nor the plain versions record an autograd graph: the
 callers run them under no_grad, and integrator.mesh_hit_t gives the
@@ -54,7 +55,7 @@ import torch
 
 from fast_ray_tracer_tpu_torch import _build
 from fast_ray_tracer_tpu_torch.constants import EPSILON
-from fast_ray_tracer_tpu_torch.utils.profiling import CounterGroup
+from fast_ray_tracer_tpu_torch.utils.profiling import CounterGroup, host_sync
 
 SC = 128                   # triangles per supercluster (two clusters of 64)
 GROUP = 32                 # superclusters per group box
@@ -163,7 +164,8 @@ def _int32_ranks(tri_rank):
     can hold one is range-checked, which on the card costs one host sync
     (once per pack, outside the chunk loop)."""
     if tri_rank.dtype not in _FITS_INT32 and tri_rank.numel():
-        lo, hi = (int(x) for x in torch.aminmax(tri_rank))
+        with host_sync("mesh_pack"):
+            lo, hi = (int(x) for x in torch.aminmax(tri_rank))
         if lo < -2**31 or hi > INT32_MAX:
             raise ValueError(f"mesh ranks must fit in int32: [{lo}, {hi}]")
     return tri_rank.to(torch.int32)
@@ -254,7 +256,8 @@ def _pairs(m: MeshTables, orig, dirs, line: bool = False):
     for r0 in range(0, orig.shape[0], rows):
         hit = cluster_mask(m.box_min, m.box_max, orig[r0:r0 + rows],
                            dirs[r0:r0 + rows], line)
-        r, s = hit.nonzero(as_tuple=True)
+        with host_sync("mesh_pairs"):
+            r, s = hit.nonzero(as_tuple=True)
         for p0 in range(0, r.shape[0], per):
             yield r[p0:p0 + per] + r0, s[p0:p0 + per]
 
@@ -349,7 +352,8 @@ def containers(m: MeshTables, orig, dirs, t_hit, hit_tri):
     n, dev, dt = orig.shape[0], orig.device, orig.dtype
     lane = torch.arange(SC, device=dev)
     # a ray without a hit (t_hit = -inf, hit_tri = -1) includes no entry
-    live = torch.isfinite(t_hit).nonzero()[:, 0]
+    with host_sync("mesh_pairs"):
+        live = torch.isfinite(t_hit).nonzero()[:, 0]
     o_live, d_live = orig[live], dirs[live]
     pr, pts, pis = [], ([], []), ([], [])
     for r, s in _pairs(m, o_live, d_live, line=True):

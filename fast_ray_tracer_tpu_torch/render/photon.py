@@ -52,7 +52,6 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
 
 from fast_ray_tracer_tpu_torch import colors as colorlib
@@ -65,7 +64,7 @@ from fast_ray_tracer_tpu_torch.render.integrator import (
 from fast_ray_tracer_tpu_torch.sampling.rng import RNG
 from fast_ray_tracer_tpu_torch.scene import ir as IR
 from fast_ray_tracer_tpu_torch.scene.ir import SceneIR
-from fast_ray_tracer_tpu_torch.utils.profiling import host_sync, span
+from fast_ray_tracer_tpu_torch.utils.profiling import count, host_sync, span
 
 CAUSTIC, GLOBAL = 0, 1
 
@@ -313,18 +312,24 @@ def draw_bounces(rng, n: int, L: int, dtype):
 # ---------------------------------------------------------------------------
 
 class PhotonMap(NamedTuple):
-    """Stored photons sorted by grid cell, on the device, and the grid.
+    """Stored photons sorted by grid cell, on the device, and the grid's
+    occupied cells.
 
     Cell (i, j, k) of `dims` has edge `cell_size` (the search radius) from
-    `grid_origin`; its id is (i * dims[1] + j) * dims[2] + k, and its
-    photons are rows row_start[id] .. row_start[id + 1] of pos, power and
-    dirs. The prov_* tensors (same order) are each photon's provenance:
-    the emitting light and the chains of photon_bounce_wave, which
+    `grid_origin`; its id is (i * dims[1] + j) * dims[2] + k. Only the
+    cells that hold a photon have rows in the tables, so the tables grow
+    with the photons and not with the box that bounds them (photons that
+    leave the scene land far out on its infinite planes): `cell_keys`
+    holds their ids in ascending order, and the photons of the m-th are
+    rows row_start[m] .. row_start[m + 1] of pos, power and dirs. The
+    prov_* tensors (same order) are each photon's provenance: the
+    emitting light and the chains of photon_bounce_wave, which
     live_photon_powers replays."""
     pos: torch.Tensor            # (N, 3)
     power: torch.Tensor          # (N, 3), already / photon_count
     dirs: torch.Tensor           # (N, 3) incident directions
-    row_start: torch.Tensor      # (n_cells + 1,) int64 CSR offsets
+    cell_keys: torch.Tensor      # (M,) int64 occupied cell ids, ascending
+    row_start: torch.Tensor      # (M + 1,) int64 CSR offsets
     grid_origin: tuple
     cell_size: float
     dims: tuple
@@ -343,57 +348,99 @@ class PhotonMap(NamedTuple):
             if isinstance(v, torch.Tensor)})
 
 
-def _neighborhood_max(counts3: np.ndarray) -> int:
-    """The most photons in any cell's 3x3x3 neighborhood."""
-    p = np.pad(counts3, 1)
-    d0, d1, d2 = counts3.shape
-    acc = np.zeros(counts3.shape, np.int64)
-    for ox in range(3):
-        for oy in range(3):
-            for oz in range(3):
-                acc += p[ox:ox + d0, oy:oy + d1, oz:oz + d2]
-    return int(acc.max()) if acc.size else 0
+_OFFSETS = [(ox, oy, oz) for ox in (-1, 0, 1) for oy in (-1, 0, 1)
+            for oz in (-1, 0, 1)]
 
 
-def build_photon_map(pos: np.ndarray, power: np.ndarray, dirs: np.ndarray,
-                     radius: float, dtype, device, prov: Optional[dict] = None,
+def _neighbor_ids(cell, dims):
+    """The ids of the 27 cells around each cell (R, 3) int64 of a grid of
+    `dims` (a (3,) int64 tensor), (R, 27), and whether each lies in the
+    grid; an id outside it is meaningless."""
+    with host_sync("upload"):
+        offs = torch.tensor(_OFFSETS, dtype=torch.int64, device=cell.device)
+    inb = None
+    for a in range(3):
+        c = cell[:, a:a + 1] + offs[:, a]
+        ok = (c >= 0) & (c < dims[a])
+        inb = ok if inb is None else inb & ok
+    d1, d2 = dims[1], dims[2]
+    own = (cell[:, 0] * d1 + cell[:, 1]) * d2 + cell[:, 2]
+    step = (offs[:, 0] * d1 + offs[:, 1]) * d2 + offs[:, 2]
+    return own[:, None] + step, inb
+
+
+def _neighborhood_max(keys, counts, dims):
+    """The most photons in any in-grid cell's 3x3x3 block, a device
+    scalar. Only a cell next to an occupied one has a block that holds a
+    photon, so each occupied cell's count goes to the 27 cells around it
+    (nothing to those outside the grid), and the sums are taken by cell
+    over the sorted ids: no table of the grid's size, no host sync."""
+    d1, d2 = dims[1], dims[2]
+    cell = torch.stack([keys // (d1 * d2), keys // d2 % d1, keys % d2], -1)
+    ids, inb = _neighbor_ids(cell, dims)
+    ids, order = torch.sort(ids.reshape(-1))
+    val = torch.where(inb, counts[:, None], 0).reshape(-1)[order]
+    run = torch.cumsum(val, 0)
+    first = torch.ones_like(ids, dtype=torch.bool)
+    first[1:] = ids[1:] != ids[:-1]
+    # the running sum at each cell's first entry, carried over its entries
+    # (the running sum never falls)
+    before = torch.where(first, run - val, 0).cummax(0).values
+    return (run - before).max()
+
+
+def build_photon_map(pos, power, dirs, radius: float, dtype, device,
+                     prov: Optional[dict] = None,
                      power_div: float = 1.0) -> Optional[PhotonMap]:
-    """Grid build on the host (numpy, as the JAX package builds its map):
-    cell edge = the search radius, so a query touches exactly its 27
-    neighboring cells; photons sorted by cell id, stably. None when no
-    photon was stored."""
-    n = len(pos)
+    """The grid over N stored photons, built on `device`: cell edge = the
+    search radius, so a query touches exactly its 27 neighboring cells;
+    photons sorted by cell id, stably; tables for the occupied cells
+    only. `pos`, `power`, `dirs` ((N, 3) each) and `prov`'s entries may be
+    arrays or tensors; `power` is stored as given. Two host syncs (both
+    `photon_grid`): the count of occupied cells, then the grid's origin,
+    dims and max_neighbors. None when no photon was stored."""
+    def dev(a, dt=dtype):
+        t = a if torch.is_tensor(a) else torch.tensor(a)
+        return t.to(device=device, dtype=dt)
+    pos = dev(pos)
+    n = pos.shape[0]
     if n == 0:
         return None
-    origin = pos.min(axis=0) - 1e-6
-    extent = pos.max(axis=0) - origin + 1e-6
-    dims = np.maximum(1, np.ceil(extent / radius).astype(np.int64) + 1)
-    cell = np.minimum(np.floor((pos - origin) / radius).astype(np.int64),
-                      dims - 1)
+    # a divisor on the device: CUDA divides by a host scalar through its
+    # reciprocal, which can move a photon across a cell face
+    r = torch.full((), radius, dtype=pos.dtype, device=pos.device)
+    origin = pos.amin(0) - 1e-6
+    extent = pos.amax(0) - origin + 1e-6
+    dims = (torch.ceil(extent / r).to(torch.int64) + 1).clamp(min=1)
+    cell = torch.minimum(torch.floor((pos - origin) / r).to(torch.int64),
+                         dims - 1)
     cid = (cell[:, 0] * dims[1] + cell[:, 1]) * dims[2] + cell[:, 2]
-    order = np.argsort(cid, kind="stable")
-    n_cells = int(dims[0] * dims[1] * dims[2])
-    counts = np.bincount(cid, minlength=n_cells)
-    row_start = np.zeros(n_cells + 1, np.int64)
-    np.cumsum(counts, out=row_start[1:])
+    cid, order = torch.sort(cid, stable=True)
+    with host_sync("photon_grid"):
+        keys, counts = torch.unique_consecutive(cid, return_counts=True)
+    count("photon.grid_cells", keys.shape[0])
+    row_start = torch.zeros(keys.shape[0] + 1, dtype=torch.int64,
+                            device=pos.device)
+    torch.cumsum(counts, 0, out=row_start[1:])
+    most = _neighborhood_max(keys, counts, dims)
+    with host_sync("photon_grid"):
+        meta = torch.cat([origin.double(), dims.double(),
+                          most.double()[None]]).tolist()
 
-    def dev(a, dt=dtype):
-        return torch.as_tensor(np.ascontiguousarray(a[order])).to(
-            device=device, dtype=dt)
+    def rows(a, dt=dtype):
+        return dev(a, dt)[order]
     extra = {}
     if prov is not None:
-        extra = dict(prov_light=dev(prov["light"], torch.int64),
-                     prov_mat=dev(prov["mat"], torch.int64),
-                     prov_code=dev(prov["code"], torch.int64),
+        extra = dict(prov_light=rows(prov["light"], torch.int64),
+                     prov_mat=rows(prov["mat"], torch.int64),
+                     prov_code=rows(prov["code"], torch.int64),
                      prov_samp=None if prov.get("samp") is None
-                     else dev(prov["samp"]), power_div=float(power_div))
+                     else rows(prov["samp"]), power_div=float(power_div))
     return PhotonMap(
-        pos=dev(pos), power=dev(power), dirs=dev(dirs),
-        row_start=torch.as_tensor(row_start).to(device),
-        grid_origin=tuple(float(x) for x in origin), cell_size=float(radius),
-        dims=tuple(int(x) for x in dims), n=n,
-        max_neighbors=_neighborhood_max(
-            counts.reshape(tuple(int(d) for d in dims))), **extra)
+        pos=pos[order], power=rows(power), dirs=rows(dirs), cell_keys=keys,
+        row_start=row_start, grid_origin=tuple(meta[:3]),
+        cell_size=float(radius), dims=tuple(int(d) for d in meta[3:6]), n=n,
+        max_neighbors=int(meta[6]), **extra)
 
 
 # ---------------------------------------------------------------------------
@@ -431,6 +478,70 @@ def _batch_size(need: float) -> int:
         0, math.ceil(math.log2(max(need, 1.0))))))
 
 
+def _trace_map(ir: SceneIR, rt, rng, dtype, map_type: int, targets,
+               batch: Optional[int], track: bool):
+    """One map's emission and bounce waves, each light until its target is
+    stored or it stalls: (stores, the device buffers, the map's stats).
+    The buffers' rows .. stores are the stored photons: position, power,
+    direction, the chains' materials and codes, the light, and the
+    chains' samples when `track`."""
+    L = rt.cfg.gi_path_length
+    dev = ir.light_pos.device
+    rows = sum(targets) + 1                       # + the sink row
+    bufs = [torch.zeros((rows, 3), dtype=dtype, device=dev)
+            for _ in range(3)]
+    bufs += [torch.zeros((rows, L), dtype=torch.int64, device=dev)
+             for _ in range(2)]
+    bufs.append(torch.zeros(rows, dtype=torch.int64, device=dev))
+    if track:
+        bufs.append(torch.zeros((rows, L, 3), dtype=dtype, device=dev))
+    count_t = torch.zeros((), dtype=torch.int64, device=dev)
+    it = 0
+    mstats = {"targets": list(targets), "stored": [], "batches": 0,
+              "syncs": 0, "emitted": 0, "stalled": []}
+    for li in range(ir.meta.n_lights):
+        with host_sync("photon_count"):
+            base = got = int(count_t)
+        limit = base + targets[li]
+        stalls = emitted = 0
+        b = batch or _batch_size(2 * targets[li])
+        while got < limit:
+            k = rng.fold(7919 * map_type + 31 * li + it)
+            it += 1
+            o, d = emit_photons(ir, li, *draw_emission(ir, li, k, b, dtype))
+            power = ir.light_intensity[li][None].expand(b, 3).to(dtype)
+            bw = photon_bounce_wave(ir, rt, map_type, o, d, power,
+                                    *draw_bounces(k.fold(1), b, L, dtype))
+            vals = [bw.pos, bw.power, bw.dirs, bw.chain_mat, bw.chain_code,
+                    torch.full((b * L,), li, dtype=torch.int64, device=dev)]
+            if track:
+                vals.append(bw.chain_samp)
+            count_t = _append(bufs, vals, bw.store, count_t, limit)
+            emitted += b
+            with host_sync("photon_count"):   # the batch's one sync
+                new_got = int(count_t)
+            mstats["batches"] += 1
+            mstats["syncs"] += 1
+            stalls = stalls + 1 if new_got == got else 0
+            got = new_got
+            if stalls > PHOTON_STALL_BATCHES:
+                mstats["stalled"].append(
+                    f"light {li}: {PHOTON_STALL_BATCHES + 1} batches in "
+                    f"a row stored nothing ({got - base} of "
+                    f"{targets[li]} stored)")
+                break
+            if batch is None and got < limit:
+                rate = (got - base) / emitted
+                b = _batch_size((limit - got) / rate * 1.3 if rate > 0
+                                else PHOTON_BATCH_MAX)
+        mstats["stored"].append(got - base)
+        mstats["emitted"] += emitted
+    with host_sync("photon_count"):
+        n_stored = int(count_t)
+    mstats["syncs"] += 1
+    return n_stored, bufs, mstats
+
+
 @torch.no_grad()
 def trace_photons(ir: SceneIR, rt, rng, dtype, caustic: bool, global_: bool,
                   batch: Optional[int] = None, stats: Optional[dict] = None):
@@ -438,14 +549,17 @@ def trace_photons(ir: SceneIR, rt, rng, dtype, caustic: bool, global_: bool,
     (None where disabled or empty). Each light is traced until its own
     share (`photon_targets`) is stored, like the reference's per-light
     loop — a light that stalls leaves its deficit unfilled; stored powers
-    are scaled by 1 / photon_count. Emission, the bounce wavefront and the
-    append run on the device, one host sync per batch; the buffers come to
-    the host once per map for the grid build. `batch` fixes the batch size
+    are scaled by 1 / photon_count. Emission, the bounce wavefront, the
+    append and the map build run on the device, one host sync per batch
+    and two per map build (build_photon_map). `batch` fixes the batch size
     (the tests' small batches); else the card's plan of PHOTON_BATCH_MIN /
     MAX. Batch b of light li in map m draws from
     rng.fold(7919 m + 31 li + b), its bounces from that node's fold(1).
     If `stats` is a dict it receives, per map, the targets, the stores per
     light, the batches and host syncs, and why a light stopped short.
+    Traced per map as the spans "photon.trace" (emission and bounces) and
+    "photon.build_map", with the counters photons.emitted, photons.stored
+    and photon.grid_cells (the occupied cells).
 
     Runs under torch.no_grad(): the photon structure (positions,
     directions, store decisions, RR draws) is frozen at its traced values,
@@ -453,10 +567,8 @@ def trace_photons(ir: SceneIR, rt, rng, dtype, caustic: bool, global_: bool,
     powers through `live_photon_powers`."""
     cfg = rt.cfg
     num = cfg.photon_count
-    L = cfg.gi_path_length
     dev = ir.light_pos.device
     targets = photon_targets(ir, num)
-    total_target = sum(targets)
     track = tracks_samples(ir)
     maps = {}
     for map_type, enabled in ((CAUSTIC, caustic), (GLOBAL, global_)):
@@ -468,73 +580,26 @@ def trace_photons(ir: SceneIR, rt, rng, dtype, caustic: bool, global_: bool,
             # a scene with no specular material can never store a caustic
             # photon (photon_tracer.c:139-143): skip the stall loop
             continue
-        rows = total_target + 1                   # + the sink row
-        bufs = [torch.zeros((rows, 3), dtype=dtype, device=dev)
-                for _ in range(3)]
-        bufs += [torch.zeros((rows, L), dtype=torch.int64, device=dev)
-                 for _ in range(2)]
-        bufs.append(torch.zeros(rows, dtype=torch.int64, device=dev))
-        if track:
-            bufs.append(torch.zeros((rows, L, 3), dtype=dtype, device=dev))
-        count = torch.zeros((), dtype=torch.int64, device=dev)
-        it = 0
-        mstats = {"targets": list(targets), "stored": [], "batches": 0,
-                  "syncs": 0, "emitted": 0, "stalled": []}
-        for li in range(ir.meta.n_lights):
-            with host_sync("photon_count"):
-                base = got = int(count)
-            limit = base + targets[li]
-            stalls = emitted = 0
-            b = batch or _batch_size(2 * targets[li])
-            while got < limit:
-                k = rng.fold(7919 * map_type + 31 * li + it)
-                it += 1
-                o, d = emit_photons(ir, li, *draw_emission(ir, li, k, b,
-                                                           dtype))
-                power = ir.light_intensity[li][None].expand(b, 3).to(dtype)
-                bw = photon_bounce_wave(ir, rt, map_type, o, d, power,
-                                        *draw_bounces(k.fold(1), b, L, dtype))
-                vals = [bw.pos, bw.power, bw.dirs, bw.chain_mat,
-                        bw.chain_code,
-                        torch.full((b * L,), li, dtype=torch.int64,
-                                   device=dev)]
-                if track:
-                    vals.append(bw.chain_samp)
-                count = _append(bufs, vals, bw.store, count, limit)
-                emitted += b
-                with host_sync("photon_count"):   # the batch's one sync
-                    new_got = int(count)
-                mstats["batches"] += 1
-                mstats["syncs"] += 1
-                stalls = stalls + 1 if new_got == got else 0
-                got = new_got
-                if stalls > PHOTON_STALL_BATCHES:
-                    mstats["stalled"].append(
-                        f"light {li}: {PHOTON_STALL_BATCHES + 1} batches in "
-                        f"a row stored nothing ({got - base} of "
-                        f"{targets[li]} stored)")
-                    break
-                if batch is None and got < limit:
-                    rate = (got - base) / emitted
-                    b = _batch_size((limit - got) / rate * 1.3 if rate > 0
-                                    else PHOTON_BATCH_MAX)
-            mstats["stored"].append(got - base)
-            mstats["emitted"] += emitted
-        with host_sync("photon_count"):
-            n_stored = int(count)
-        mstats["syncs"] += 1
+        with span("photon.trace", map=map_type):
+            n_stored, bufs, mstats = _trace_map(ir, rt, rng, dtype, map_type,
+                                                targets, batch, track)
+        count("photons.emitted", mstats["emitted"])
+        count("photons.stored", n_stored)
         if stats is not None:
             stats[map_type] = mstats
         if not n_stored:
             continue
-        with host_sync("photon_map_copy", len(bufs)):
-            host = [x[:n_stored].cpu().numpy() for x in bufs]
-        prov = {"light": host[5], "mat": host[3], "code": host[4],
-                "samp": host[6] if track else None}
-        maps[map_type] = build_photon_map(
-            host[0], host[1] / float(num), host[2],
-            cfg.irradiance_estimate_radius, dtype, dev, prov=prov,
-            power_div=float(num))
+        with span("photon.build_map", map=map_type):
+            got = [x[:n_stored] for x in bufs]
+            # a true division by a device tensor, as live_photon_powers
+            # divides
+            div = torch.full((), float(num), dtype=dtype, device=dev)
+            prov = {"light": got[5], "mat": got[3], "code": got[4],
+                    "samp": got[6] if track else None}
+            maps[map_type] = build_photon_map(
+                got[0], got[1] / div, got[2],
+                cfg.irradiance_estimate_radius, dtype, dev, prov=prov,
+                power_div=float(num))
     return maps
 
 
@@ -592,27 +657,28 @@ def with_live_power(pm: Optional[PhotonMap], ir: SceneIR):
 # the irradiance estimate
 # ---------------------------------------------------------------------------
 
-_OFFSETS = [(ox, oy, oz) for ox in (-1, 0, 1) for oy in (-1, 0, 1)
-            for oz in (-1, 0, 1)]
-
-
 def _neighbor_extents(pm: PhotonMap, points):
     """Per query the photon-row extents of its 27 neighbor cells: (starts,
-    ends), each (R, 27); out-of-grid cells are empty."""
+    ends), each (R, 27), as a dense CSR over every cell of the grid would
+    give them (a cell's start is the count of photons in the cells of
+    lower id); empty and out-of-grid cells are empty, an out-of-grid
+    cell's start is 0. Each cell is looked up among the occupied ones."""
     dev, dtype = points.device, points.dtype
-    org = torch.tensor(pm.grid_origin, dtype=dtype, device=dev)
-    hi = torch.tensor([d - 1 for d in pm.dims], dtype=dtype, device=dev)
+    with host_sync("upload", 3):
+        org = torch.tensor(pm.grid_origin, dtype=dtype, device=dev)
+        hi = torch.tensor([d - 1 for d in pm.dims], dtype=dtype, device=dev)
+        dims = torch.tensor(pm.dims, device=dev)
     # clamp before the integer conversion: parked points (1e30) overflow it
     cell = torch.minimum(torch.floor((points - org) / pm.cell_size)
                          .clamp(min=0.0), hi).to(torch.int64)
-    offs = torch.tensor(_OFFSETS, dtype=torch.int64, device=dev)
-    c = cell[:, None, :] + offs[None]
-    dims = torch.tensor(pm.dims, dtype=torch.int64, device=dev)
-    inb = ((c >= 0) & (c < dims)).all(-1)
-    cidx = (c[..., 0] * pm.dims[1] + c[..., 1]) * pm.dims[2] + c[..., 2]
-    cidx = torch.where(inb, cidx, 0)
-    s = pm.row_start[cidx]
-    e = torch.where(inb, pm.row_start[cidx + 1], s)
+    cidx, inb = _neighbor_ids(cell, dims)
+    del cell
+    m = pm.cell_keys.shape[0]
+    at = torch.searchsorted(pm.cell_keys, cidx)
+    hit = inb & (pm.cell_keys[at.clamp(max=m - 1)] == cidx)
+    del cidx
+    s = torch.where(inb, pm.row_start[at], 0)
+    e = torch.where(hit, pm.row_start[(at + 1).clamp(max=m)], s)
     return s, e
 
 
@@ -682,8 +748,12 @@ def irradiance_estimate(pm: PhotonMap, points, eyev, num: int,
     (powers of two from _MIN_WIDTH up; a query with no candidate costs
     nothing) and processed in blocks whose candidate tables stay within
     QUERY_BUDGET_BYTES, so peak memory is bounded whatever R and however
-    dense the map. Host syncs: one for the class sizes, one per class.
-    Traced as the span "irradiance_estimate"."""
+    dense the map. Host syncs: three for the class sizes, one per class,
+    and the grid's three small uploads.
+    Traced as the span "irradiance_estimate", with the counters
+    gi.estimate_queries (R) and gi.estimate_slots (the candidate-table
+    slots processed, from the class sizes)."""
+    count("gi.estimate_queries", points.shape[0])
     with span("irradiance_estimate"):
         return _irradiance_estimate(pm, points, eyev, num, max_dist, cone_k)
 
@@ -702,13 +772,15 @@ def _irradiance_estimate(pm, points, eyev, num, max_dist, cone_k):
     cls = torch.ceil(torch.log2(total.clamp(min=_MIN_WIDTH).to(torch.float64)
                                 / _MIN_WIDTH)).to(torch.int64)
     cls = torch.where(total > 0, cls.clamp(max=n_classes - 1), n_classes)
-    with host_sync("estimate_classes"):
+    # three waits on the card: bincount's bounds of `cls`, then the sizes
+    with host_sync("estimate_classes", 3):
         sizes = torch.bincount(cls, minlength=n_classes + 1).tolist()
     slot_bytes = _SLOT_INDEX_BYTES + _SLOT_FLOATS * points.element_size()
     for c in range(n_classes):
         if not sizes[c]:
             continue
         width = min(_MIN_WIDTH << c, max(pm.max_neighbors, 1))
+        count("gi.estimate_slots", sizes[c] * width)
         with host_sync("estimate_classes"):
             idx = torch.nonzero(cls == c)[:, 0]
         block = max(1, QUERY_BUDGET_BYTES // (width * slot_bytes))
@@ -743,7 +815,13 @@ def lighting_gi(ir: SceneIR, rt, pm: PhotonMap, comps, cfg):
 
 def lighting_caustics(ir: SceneIR, rt, pm: PhotonMap, comps, cfg):
     """renderer.c:829-860: the caustic map's cone-filtered estimate * 100 /
-    found, Kd * estimate * (eyev . normal) where Kd > 0."""
+    found, Kd * estimate * (eyev . normal) where Kd > 0. Traced as the
+    span "gi.caustics"."""
+    with span("gi.caustics"):
+        return _lighting_caustics(pm, comps, cfg)
+
+
+def _lighting_caustics(pm, comps, cfg):
     est, found = irradiance_estimate(
         pm, comps.over_point, comps.eyev, cfg.irradiance_estimate_num,
         cfg.irradiance_estimate_radius, cfg.irradiance_estimate_cone_filter_k)
@@ -769,12 +847,15 @@ def final_gather(ir: SceneIR, rt, pm_global: PhotonMap, comps, u, cfg):
     uniform (the reference's "scale by theta" quirk), averaged with
     pdf_inv = 2 pi, times Kd. The S R rays go through one intersection
     and estimate pass, sample-major (sub-batch s holds sample s of every
-    point)."""
+    point). Traced as the span "gi.final_gather", with the counter
+    gi.gather_rays (S R)."""
     S, R = u.shape[0], u.shape[1]
+    count("gi.gather_rays", S * R)
     normals = comps.normalv[None].expand(S, R, 3).reshape(-1, 3)
     d, r1 = cosine_hemisphere(u.reshape(-1, 2), normals)
     orig = comps.over_point[None].expand(S, R, 3).reshape(-1, 3)
-    c = color_at_gi(ir, rt, pm_global, orig, d, cfg)
+    with span("gi.final_gather"):
+        c = color_at_gi(ir, rt, pm_global, orig, d, cfg)
     total = (c * r1[:, None]).reshape(S, R, 3).sum(0)
     return total * (2.0 * math.pi / S) * comps.over_Kd
 
