@@ -133,7 +133,8 @@ Phases, one line each or more:
      device memory;
  24. Cornell GI frame: render_scene(cornell_box(800, 800)) in float32 at
      SEED, photon pass included, the whole frame one call: the launches
-     of all four kernels (each at least once), no overflow, a finite
+     of all five kernels (each at least once; no estimate on the torch
+     route), no overflow, a finite
      canvas, every warm frame bitwise the first; the warm wall (median of
      --reps), the photon pass's share, pixels/s, traced rays/s (primary
      rays plus the probe's children, each with 100 shadow and 9 gather
@@ -156,6 +157,16 @@ Phases, one line each or more:
  27. GI output: the sha256 of the Cornell frame's PPM, and the PNG that
      `python -m fast_ray_tracer_tpu_torch` writes from cornell_box.yml
      with --seed SEED, read back bitwise equal to the frame's encode.
+27b. irradiance kernel: the benchmark's Cornell cell (112x112, 4x4
+     samples, 1,000,000 photons a map, an 8x8 gather) at SEED, each
+     estimate call of a warm frame recorded (both maps; every call on the
+     kernel, none on the torch route); on each, the query kernel
+     (csrc/photon.cu) against the torch route: found and r^2 bitwise, irr
+     within IRR_RTOL, the kernel again bitwise and bitwise its in-frame
+     output; the queries by the kernel's route (light, heavy) and by the
+     select; the kernel's and the torch route's device times, per call
+     and over the frame. `--irradiance` runs the build and this phase
+     alone.
  28. Cornell forward+backward set-up: cornell_box(800, 800) in float32,
      depth 5, the photon pass at SEED (no autograd), the GI hook with live
      photon powers, every float table a parameter (the block's tri_*
@@ -307,6 +318,7 @@ MW, MH = 600, 240         # the mesh frame
 SRC = "fast_ray_tracer_tpu_torch/csrc/compact.cu"
 MESH_SRC = "fast_ray_tracer_tpu_torch/csrc/mesh.cu"
 GATHER_SRC = "fast_ray_tracer_tpu_torch/csrc/gather.cu"
+PHOTON_SRC = "fast_ray_tracer_tpu_torch/csrc/photon.cu"
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                        "out")
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
@@ -1108,9 +1120,14 @@ def render_cornell(device, reps):
     traced rays/s and peak memory."""
     scene = cornell_box(CW, CH)
     soft_counts()
+    photon.LAUNCHES.update(irradiance=0, irradiance_plain=0)
     stats = {}
     canvas, cold = frame(device, stats=stats, scene=scene, seed=SEED)
-    launches = {**compact.LAUNCHES, **mesh.LAUNCHES}
+    launches = {**compact.LAUNCHES, **mesh.LAUNCHES,
+                "irradiance": photon.LAUNCHES["irradiance"]}
+    if photon.LAUNCHES["irradiance_plain"]:
+        raise AssertionError(f"a forward frame's estimate took the torch "
+                             f"route: {photon.LAUNCHES}")
     log("cornell", f"{CW}x{CH} depth 5 float32, seed {SEED}, photon pass "
         f"included: launches {launches}, buckets {stats['buckets']}, "
         f"escalations {stats['escalations']}, exact chunks "
@@ -1334,6 +1351,145 @@ def cornell_output(canvas):
     if not same:
         raise AssertionError("the command line's Cornell PNG differs from "
                              "the frame")
+
+
+# the benchmark's Cornell cell (cornell_gi_full): 112x112 in one chunk, 4x4
+# samples a pixel, 1,000,000 photons a map, an 8x8 final gather
+IW = IH = 112
+# float32, the query kernel against the torch route on the same queries:
+# the sums of a query's selected photons (every term >= 0) in another
+# order, each within this share of the torch route's
+IRR_RTOL = 1e-5
+
+
+def cell_cornell():
+    """The benchmark's Cornell cell as scene/demo builds it."""
+    scene = cornell_box(IW, IH)
+    scene.config = replace(scene.config, photon_count=1_000_000,
+                           gi_usteps=8, gi_vsteps=8)
+    scene.camera = replace(scene.camera, usteps=4, vsteps=4)
+    return scene
+
+
+def irradiance_calls(device, scene):
+    """One warm frame of `scene` at SEED with each irradiance estimate
+    recorded as the kernel took and returned it: [(map, pm, points, eyev,
+    num, max_dist, cone_k, irr, found)], and photon.LAUNCHES over the
+    frame."""
+    calls, caustic = [], [False]
+    real_est, real_caustics = (photon.irradiance_estimate,
+                               photon._lighting_caustics)
+
+    def est(pm, points, eyev, num, max_dist, cone_k):
+        irr, found = real_est(pm, points, eyev, num, max_dist, cone_k)
+        calls.append(("caustic" if caustic[0] else "global", pm,
+                      points.detach().clone(), eyev.detach().clone(), num,
+                      max_dist, cone_k, irr.clone(), found.clone()))
+        return irr, found
+
+    def caustics(*a, **k):
+        caustic[0] = True
+        try:
+            return real_caustics(*a, **k)
+        finally:
+            caustic[0] = False
+
+    photon.LAUNCHES.update(irradiance=0, irradiance_plain=0)
+    photon.irradiance_estimate = est
+    photon._lighting_caustics = caustics
+    try:
+        frame(device, scene=scene, seed=SEED)
+    finally:
+        photon.irradiance_estimate = real_est
+        photon._lighting_caustics = real_caustics
+    return calls, dict(photon.LAUNCHES)
+
+
+def check_irradiance(device):
+    """The query kernel on the Cornell cell's own estimate calls (both
+    maps) against the torch route on the same queries: found and r^2
+    bitwise, irr within IRR_RTOL, the kernel again bitwise and bitwise its
+    in-frame output; each call's queries by the kernel's route (light: a
+    warp; heavy: the block) and by the select (n_in >= num); the kernel's
+    time (CUDA events around its one launch) and the torch route's device
+    time (profiler), per call and over the frame."""
+    from torch.profiler import ProfilerActivity, profile
+    scene = cell_cornell()
+    t0 = time.perf_counter()
+    frame(device, scene=scene, seed=SEED)      # calibration, maps, build
+    cold = time.perf_counter() - t0
+    calls, launches = irradiance_calls(device, scene)
+    log("irradiance", f"{IW}x{IH} Cornell cell at seed {SEED}: {len(calls)} "
+        f"estimate calls in a warm frame, launches {launches} (first frame "
+        f"{cold:.2f} s)")
+    if launches != {"irradiance": len(calls), "irradiance_plain": 0} \
+            or not calls:
+        raise AssertionError(f"the forward frame's estimates did not all "
+                             f"take the kernel: {launches}")
+    light_max = int(photon._load().frt_irradiance_light_max())
+    total = {"queries": 0, "heavy": 0, "dense": 0, "kernel_ms": 0.0,
+             "plain_ms": 0.0, "max_rel_err": 0.0}
+    out = []
+    for i, (label, pm, pts, eye, num, md, ck, irr, found) in \
+            enumerate(calls):
+        R = pts.shape[0]
+        r2k = torch.empty(R, dtype=pts.dtype, device=device)
+        r2p = torch.empty(R, dtype=pts.dtype, device=device)
+
+        def kernel():
+            return photon.irradiance_cuda(pm, pts, eye, num, md, ck)
+        kirr, kfound = photon.irradiance_cuda(pm, pts, eye, num, md, ck,
+                                              r2_out=r2k)
+        again = kernel()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with torch.no_grad():
+                pirr, pfound = photon._irradiance_estimate(
+                    pm, pts, eye, num, md, ck, r2_out=r2p)
+            torch.cuda.synchronize()
+        plain_ms = device_us(prof) / 1e3
+        # the launch is the only work between the events: its device time
+        k_ms = median_ms(kernel, reps=5)
+        in_frame = torch.equal(kirr, irr) and torch.equal(kfound, found)
+        repeat = torch.equal(again[0], kirr) and torch.equal(again[1], kfound)
+        found_bad = int((kfound != pfound).sum())
+        r2_bad = int((r2k.view(torch.int32) != r2p.view(torch.int32)).sum()
+                     if pts.dtype == torch.float32 else (r2k != r2p).sum())
+        ok = ((kirr - pirr).abs() <= IRR_RTOL * pirr.abs()) | (kirr == pirr)
+        rel = float(((kirr - pirr).abs() / pirr.abs().clamp(min=1e-30))
+                    .masked_fill(kirr == pirr, 0.0).max())
+        s, e = photon._neighbor_extents(pm, pts)
+        heavy = int(((e - s).sum(1) > light_max).sum())
+        dense = int((pfound == num).sum())
+        log("irradiance", f"call {i} ({label} map, {pm.n} photons in "
+            f"{pm.cell_keys.shape[0]} cells): {R} queries ({R - heavy} "
+            f"light, {heavy} heavy; {dense} with n_in >= {num}); found "
+            f"mismatches {found_bad}, r2 bit mismatches {r2_bad}, irr "
+            f"outside rtol {IRR_RTOL}: {int((~ok).sum())} (largest relative "
+            f"difference {rel:.3e}); again bitwise {repeat}; in-frame output "
+            f"bitwise {in_frame}; kernel {k_ms:.3f} ms (events, median "
+            f"of 5), torch route {plain_ms:.1f} ms of device time "
+            f"(profiler; {plain_ms / k_ms:.1f}x)")
+        if found_bad or r2_bad or not bool(ok.all()) or not repeat \
+                or not in_frame:
+            raise AssertionError(f"the query kernel differs from the torch "
+                                 f"route on call {i} of the Cornell frame")
+        total["queries"] += R
+        total["heavy"] += heavy
+        total["dense"] += dense
+        total["kernel_ms"] += k_ms
+        total["plain_ms"] += plain_ms
+        total["max_rel_err"] = max(total["max_rel_err"], rel)
+        out.append({"map": label, "queries": R, "heavy": heavy,
+                    "dense": dense, "kernel_ms": k_ms, "plain_ms": plain_ms,
+                    "max_rel_err": rel})
+        del r2k, r2p, pirr, pfound, kirr, kfound, again
+    log("irradiance", f"the frame's {len(calls)} calls: {total['queries']} "
+        f"queries ({total['heavy']} heavy, {total['dense']} selecting); "
+        f"kernel {total['kernel_ms']:.2f} ms (events), torch route "
+        f"{total['plain_ms']:.1f} ms of device time "
+        f"({total['plain_ms'] / max(total['kernel_ms'], 1e-9):.1f}x); "
+        f"largest relative irr difference {total['max_rel_err']:.3e}")
+    return {"calls": out, **total}
 
 
 @contextlib.contextmanager
@@ -3044,6 +3200,8 @@ def main():
     ap.add_argument("--table-grad", action="store_true",
                     help="build, then run only the gather backward's size "
                     "sweep and phase 21b")
+    ap.add_argument("--irradiance", action="store_true",
+                    help="build, then run only phase 27b")
     ap.add_argument("--rank", type=int, default=None,
                     help=argparse.SUPPRESS)    # phases 34-37's workers
     ap.add_argument("--store", default=None, help=argparse.SUPPRESS)
@@ -3093,6 +3251,12 @@ def main():
         print(smi, flush=True)
         print(json.dumps({"table_grad_sweep": sweep, "table_grad": tg}),
               flush=True)
+        shutil.rmtree(cache_dir, ignore_errors=True)
+        return 0
+    if args.irradiance:
+        irr = check_irradiance(device)
+        print(smi, flush=True)
+        print(json.dumps({"irradiance": irr}), flush=True)
         shutil.rmtree(cache_dir, ignore_errors=True)
         return 0
 
@@ -3234,7 +3398,8 @@ def main():
     check_cornell_equal(device, ccanvas)
     check_cornell_card_vs_cpu(device)
     cornell_output(ccanvas)
-    log("cornell", f"phases 22-27 took {time.perf_counter() - t0:.1f} s")
+    irrstats = check_irradiance(device)
+    log("cornell", f"phases 22-27b took {time.perf_counter() - t0:.1f} s")
 
     # 28-32. the GI and mesh gradient path: the 800x800 Cornell
     # forward+backward counted and timed with its live photon powers, a
@@ -3319,6 +3484,10 @@ def main():
                  "launches_cornell_fwd_bwd_bwd": fb["bwd"]["table_grad"],
                  "launches_reflect_refract_bwd":
                      tgstats.pop("launches_train_bwd"), **tgstats})
+    rows.append({"name": "irradiance estimate (irradiance)", "route": "cuda",
+                 "source": PHOTON_SRC, "replaces": "none (jnp code in the "
+                 "JAX package)", "launches_cornell": claunches["irradiance"],
+                 **irrstats})
     shutil.rmtree(cache_dir, ignore_errors=True)
     log("done", f"the whole script took {time.perf_counter() - started:.1f} "
         f"s")

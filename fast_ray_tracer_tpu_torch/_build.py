@@ -37,7 +37,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # -ffp-contract=off: the divide walk is held bit for bit to the Python one
 GXX_FLAGS = ("-O3", "-ffp-contract=off", "-std=c++17", "-fPIC", "-shared")
 
-CUDA_SOURCES = ("compact", "mesh", "gather")
+CUDA_SOURCES = ("compact", "mesh", "gather", "photon")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -21,7 +21,9 @@ package (fast_ray_tracer_tpu/render/photon.py):
     otherwise, the cone weight 1 - d / (k * max_dist), the normalization
     1 / ((1 - 2 / (3k)) pi r^2), at least 8 photons, photons from behind
     `eyev` rejected (the reference passes eyev as the normal — a quirk,
-    kept).
+    kept). On the card it is one hand-written CUDA query kernel
+    (csrc/photon.cu); the torch route is the CPU's, the gradient's and
+    the kernel's reference.
 
 Storage rules (photon_tracer.c:113-183): the caustic map stores only
 after at least one specular bounce, the global map only after at least
@@ -49,11 +51,13 @@ cone weights into the query points.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple, Optional
 
 import torch
 
+from fast_ray_tracer_tpu_torch import _build
 from fast_ray_tracer_tpu_torch import colors as colorlib
 from fast_ray_tracer_tpu_torch.ops.gather import take_rows
 from fast_ray_tracer_tpu_torch.ops.vec import dot3
@@ -64,7 +68,9 @@ from fast_ray_tracer_tpu_torch.render.integrator import (
 from fast_ray_tracer_tpu_torch.sampling.rng import RNG
 from fast_ray_tracer_tpu_torch.scene import ir as IR
 from fast_ray_tracer_tpu_torch.scene.ir import SceneIR
-from fast_ray_tracer_tpu_torch.utils.profiling import count, host_sync, span
+from fast_ray_tracer_tpu_torch.utils.profiling import (
+    CounterGroup, count, host_sync, span,
+)
 
 CAUSTIC, GLOBAL = 0, 1
 
@@ -86,8 +92,13 @@ PHOTON_BATCH_MIN = 1 << 12
 PHOTON_BATCH_MAX = 1 << 19
 PHOTON_STALL_BATCHES = 16
 
-# device bytes that one block of irradiance queries may hold in its
-# candidate tables (the JAX package's `_query_block` budget)
+# since the last reset (a plain int each): the CUDA query kernel's calls,
+# and the CUDA estimates on the grad path that took the torch route; the
+# tracer's counters launches.irradiance and launches.irradiance_plain
+LAUNCHES = CounterGroup("launches.", "irradiance", "irradiance_plain")
+
+# the torch route's candidate tables: the device bytes one block of
+# queries may hold (the JAX package's `_query_block` budget)
 QUERY_BUDGET_BYTES = 1 << 30
 # bytes a candidate slot takes across a block's tables: its photon index
 # and cell (int64), its gathered position, power and direction, d^2 and
@@ -685,7 +696,7 @@ def _neighbor_extents(pm: PhotonMap, points):
 def _estimate_block(pm: PhotonMap, points, eyev, s, e, width: int, num: int,
                     max_dist: float, cone_k: float):
     """The estimate for a block of queries whose candidates (the photons of
-    their 27 neighbor cells) number at most `width` each: (irr, found).
+    their 27 neighbor cells) number at most `width` each: (irr, found, r2).
 
     The candidates go into a (Rb, width) table, slot j of a query holding
     the photon at offset j of the concatenation of its cells' extents. The
@@ -736,7 +747,21 @@ def _estimate_block(pm: PhotonMap, points, eyev, s, e, width: int, num: int,
     irr = torch.stack([(wm * pw[..., i]).sum(-1) for i in range(3)], -1)
     norm = 1.0 / ((1.0 - 2.0 / (3.0 * cone_k)) * math.pi * r2)
     irr = irr * norm[:, None]
-    return torch.where((found >= 8)[:, None], irr, 0.0), found
+    return torch.where((found >= 8)[:, None], irr, 0.0), found, r2
+
+
+def estimate_route(device_type: str, grad: bool) -> str:
+    """Which implementation answers an estimate: "cpu" (the torch route,
+    uncounted) for CPU tensors; on CUDA "irradiance" (the query kernel)
+    unless `grad` (autograd on and the query points or the map's powers
+    requiring grad), then "irradiance_plain" (the torch route, whose
+    backward needs the per-slot cone weights that only its table holds)."""
+    if device_type == "cpu":
+        return "cpu"
+    if device_type != "cuda":
+        raise ValueError(f"no irradiance estimate for tensors on "
+                         f"{device_type}")
+    return "irradiance_plain" if grad else "irradiance"
 
 
 def irradiance_estimate(pm: PhotonMap, points, eyev, num: int,
@@ -744,25 +769,111 @@ def irradiance_estimate(pm: PhotonMap, points, eyev, num: int,
     """pm_irradiance_estimate (pm.c:91-156) for a batch of queries:
     (irr (R, 3), found (R,) int64).
 
-    Queries are grouped by their candidate count into width classes
-    (powers of two from _MIN_WIDTH up; a query with no candidate costs
-    nothing) and processed in blocks whose candidate tables stay within
-    QUERY_BUDGET_BYTES, so peak memory is bounded whatever R and however
-    dense the map. Host syncs: three for the class sizes, one per class,
-    and the grid's three small uploads.
+    On CUDA tensors off the grad path (estimate_route) the query kernel of
+    csrc/photon.cu answers: one launch, no host sync, no upload. Else the
+    torch route, `_irradiance_estimate`, which is the kernel's reference.
     Traced as the span "irradiance_estimate", with the counters
-    gi.estimate_queries (R) and gi.estimate_slots (the candidate-table
-    slots processed, from the class sizes)."""
+    gi.estimate_queries (R) and, on the torch route only,
+    gi.estimate_slots (its candidate-table slots, from its class sizes;
+    the kernel has no table); the kernel's calls and the CUDA grad-path
+    calls count in LAUNCHES."""
     count("gi.estimate_queries", points.shape[0])
     with span("irradiance_estimate"):
+        route = estimate_route(points.device.type, torch.is_grad_enabled()
+                               and (points.requires_grad
+                                    or pm.power.requires_grad))
+        if route == "irradiance":
+            return irradiance_cuda(pm, points, eyev, num, max_dist, cone_k)
+        if route == "irradiance_plain":
+            LAUNCHES.add("irradiance_plain")
         return _irradiance_estimate(pm, points, eyev, num, max_dist, cone_k)
 
 
-def _irradiance_estimate(pm, points, eyev, num, max_dist, cone_k):
+_lib = None
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+
+
+def _load():
+    global _lib
+    if _lib is None:
+        lib = _build.load("photon")
+        vp, i64, i32, f64 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                             ctypes.c_double)
+        for name in ("frt_irradiance_f32", "frt_irradiance_f64"):
+            fn = getattr(lib, name)
+            fn.argtypes = [vp, vp, i64, vp, vp, vp, i64, vp, vp, i64, i64,
+                           i64, i64, f64, f64, f64, f64, i32, f64, f64, f64,
+                           vp, vp, vp, i32, vp]
+            fn.restype = i32
+        lib.frt_irradiance_light_max.argtypes = []
+        lib.frt_irradiance_light_max.restype = ctypes.c_longlong
+        _lib = lib
+    return _lib
+
+
+def irradiance_cuda(pm: PhotonMap, points, eyev, num: int, max_dist: float,
+                    cone_k: float, r2_out=None):
+    """The estimate through the query kernel (csrc/photon.cu): one launch
+    on the current stream; allocates the outputs alone. The scalars go to
+    the kernel as Python computes them in the torch route. With `r2_out`
+    (an (R,) tensor of the points' type and device) the kernel also writes
+    each query's r^2 there, for the checks against the torch route."""
+    dtype, dev = points.dtype, points.device
+    if dtype not in _SUFFIX:
+        raise TypeError(f"irradiance: float32 or float64, got {dtype}")
+    for name, t in (("eyev", eyev), ("pos", pm.pos), ("power", pm.power),
+                    ("dirs", pm.dirs)):
+        if t.dtype != dtype or t.device != dev:
+            raise ValueError(f"irradiance: {name} is {t.dtype} on "
+                             f"{t.device}, the points {dtype} on {dev}")
+    if num < 1 or pm.n >= 2 ** 31:
+        raise ValueError(f"irradiance: num {num} below 1 or a map of "
+                         f"{pm.n} photons")
+    R = points.shape[0]
+    if r2_out is not None and not (
+            r2_out.shape == (R,) and r2_out.dtype == dtype
+            and r2_out.device == dev and r2_out.is_contiguous()):
+        raise ValueError("irradiance: r2_out must be a contiguous (R,) "
+                         "tensor of the points' type and device")
+    irr = torch.empty((R, 3), dtype=dtype, device=dev)
+    found = torch.empty(R, dtype=torch.int64, device=dev)
+    if R == 0:
+        return irr, found
+    pts = points.detach().contiguous()
+    eye = eyev.detach().contiguous()
+    pos, power, dirs = (t.detach().contiguous()
+                        for t in (pm.pos, pm.power, pm.dirs))
+    keys, rows = pm.cell_keys.contiguous(), pm.row_start.contiguous()
+    err = getattr(_load(), f"frt_irradiance_{_SUFFIX[dtype]}")(
+        pts.data_ptr(), eye.data_ptr(), R, pos.data_ptr(), power.data_ptr(),
+        dirs.data_ptr(), pm.n, keys.data_ptr(), rows.data_ptr(),
+        keys.shape[0], *pm.dims, *pm.grid_origin, pm.cell_size, num,
+        max_dist * max_dist, 1.0 / (cone_k * max_dist),
+        (1.0 - 2.0 / (3.0 * cone_k)) * math.pi, irr.data_ptr(),
+        found.data_ptr(), 0 if r2_out is None else r2_out.data_ptr(),
+        dev.index, torch._C._cuda_getCurrentRawStream(dev.index))
+    LAUNCHES.add("irradiance")
+    if err != 0:
+        raise RuntimeError(f"irradiance: CUDA error {err} at launch")
+    return irr, found
+
+
+def _irradiance_estimate(pm, points, eyev, num, max_dist, cone_k,
+                         r2_out=None):
+    """The torch route. Queries are grouped by their candidate count into
+    width classes (powers of two from _MIN_WIDTH up; a query with no
+    candidate costs nothing) and processed in blocks whose candidate
+    tables stay within QUERY_BUDGET_BYTES, so peak memory is bounded
+    whatever R and however dense the map. Host syncs: three for the class
+    sizes, one per class, and the grid's three small uploads. With
+    `r2_out` (an (R,) tensor of the points' type) each query's r^2 goes
+    there too, for the checks of the kernel."""
     R = points.shape[0]
     dev, dtype = points.device, points.dtype
     irr = torch.zeros((R, 3), dtype=dtype, device=dev)
     found = torch.zeros(R, dtype=torch.int64, device=dev)
+    if r2_out is not None:
+        r2_out.fill_(max_dist * max_dist)
     if R == 0:
         return irr, found
     s, e = _neighbor_extents(pm, points)
@@ -786,10 +897,12 @@ def _irradiance_estimate(pm, points, eyev, num, max_dist, cone_k):
         block = max(1, QUERY_BUDGET_BYTES // (width * slot_bytes))
         for lo in range(0, idx.shape[0], block):
             q = idx[lo:lo + block]
-            bi, bf = _estimate_block(pm, points[q], eyev[q], s[q], e[q],
-                                     width, num, max_dist, cone_k)
+            bi, bf, br = _estimate_block(pm, points[q], eyev[q], s[q], e[q],
+                                         width, num, max_dist, cone_k)
             irr.index_copy_(0, q, bi)
             found.index_copy_(0, q, bf)
+            if r2_out is not None:
+                r2_out.index_copy_(0, q, br.detach())
     return irr, found
 
 
