@@ -41,7 +41,16 @@ from fast_ray_tracer_tpu_torch.scene.compile import compile_scene
 from fast_ray_tracer_tpu_torch.scene.demo import glass_spheres
 
 from bench_torch import ranks
-from bench_torch.common import resolve
+
+
+def resolve(device) -> torch.device:
+    """`device` (None: the CUDA card) as a torch.device; raises when the
+    card is asked for and there is none."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("bench_torch: no CUDA device; the CPU runs only "
+                           "when asked for (device='cpu')")
+    return device
 
 
 def _setup(width, height, device, dtype=torch.float32):

@@ -225,11 +225,9 @@ Phases, one line each or more:
      temporary FRT_COMPILE_CACHE, so a frame after the first of its
      scene (the warm walls of phases 4, 8, 11 and others) skips the
      probe.
- 39. (after the profiled sections below) the bench's entry points
-     (bench_torch/): its flagship cell at 3 rounds (its gates: no
-     overflow, finite frames, both compaction kernels launched), the
-     cell's calibrated pixel_colors frame bitwise phase 4's canvas;
-     entry()'s 64x32 forward step on the card (finite, no overflow);
+ 39. (after the profiled sections below) the entry points
+     (bench_torch/entry.py): entry()'s 64x32 forward step on the card
+     (finite, no overflow);
      dryrun_multichip(1) (one NCCL rank) and dryrun_multichip(2) (two
      gloo ranks sharing cuda:0), both at once: finite, the same canvas bit
      for bit, losses within DRYRUN_LOSS_RTOL.
@@ -305,12 +303,17 @@ from fast_ray_tracer_tpu_torch.scene.demo import (
     CORNELL_DIR, SOFT_DIR, cornell_box, glass_spheres, mesh_torus,
     primitives_showcase, soft_textured,
 )
-from fast_ray_tracer_tpu_torch.scene.model import replace
+from fast_ray_tracer_tpu_torch.scene.model import ApertureDesc, replace
 from fast_ray_tracer_tpu_torch.scene.yaml_loader import load_scene
-from fast_ray_tracer_tpu_torch.scene.ir import PAT_UV_TEXTURE
+from fast_ray_tracer_tpu_torch.scene.ir import (
+    PAT_UV_TEXTURE, SceneIR, SceneMeta,
+)
 from fast_ray_tracer_tpu_torch.utils.profiling import PhaseTimer, TRACE_FILE
 
-from bench_torch.extras import build_soup, dof_scene
+from benchmark.roofline import (
+    FP32_OPS_PER_S, HBM_BYTES_PER_S, MT_OPS, SC, SLAB_OPS, bytes_seconds,
+    compact_bytes, expand_bytes, mesh_bound, passed_pairs,
+)
 
 W, H = 800, 400
 RAYS_PER_PIXEL = 126      # 63 trace + 63 shadow rays (depth 5, 2 children)
@@ -321,12 +324,6 @@ GATHER_SRC = "fast_ray_tracer_tpu_torch/csrc/gather.cu"
 PHOTON_SRC = "fast_ray_tracer_tpu_torch/csrc/photon.cu"
 OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
                        "out")
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA's data sheet
-FP32_OPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
-# operations per (ray, triangle) Möller-Trumbore and per (ray,
-# supercluster) slab test, counted from csrc/mesh.cu: 46 add/sub/mul/div;
-# 6 sub, 6 mul, 6 min/max, 4 min/max across axes, 2 compares
-MT_OPS, SLAB_OPS = 46, 24
 
 
 def log(phase, msg):
@@ -538,11 +535,11 @@ def check_kernels(device, n0, b0, seed=0):
             (n, 9), device=device).masked_scatter_(mask9, child)),
     }
     # bytes the function must move: each input once, each output once
-    nbytes = {"compact": n * 6 * 4 + n + b0 * 6 * 4,
-              "expand": b0 * 9 * 4 + n + n * 9 * 4}
+    nbytes = {"compact": compact_bytes(n, 6, b0, 4),
+              "expand": expand_bytes(n, 9, b0, 4)}
     out = {}
     for k, (kern, plain) in timing.items():
-        bound = nbytes[k] / HBM_BYTES_PER_S * 1e3
+        bound = bytes_seconds(nbytes[k]) * 1e3
         log("kernels", f"{k}_rows N={n} B={b0} p=0.5: kernel "
             f"{kern * 1e3:.1f} us, plain {plain * 1e3:.1f} us, "
             f"library {library[k] * 1e3:.1f} us (median of 30); bound "
@@ -591,8 +588,21 @@ def kernel_device_ms(device, n0, b0, event_ms):
     return out
 
 
-def frame(device, compaction="auto", stats=None, scene=None, seed=None,
-          pmesh=None, timer=None):
+@contextlib.contextmanager
+def plain_compaction():
+    """Route the compaction and expansion of CUDA tensors to their plain
+    versions, so a frame or a gradient can be held against the kernels'."""
+    saved = compact.compact_rows_cuda, compact.expand_rows_cuda
+    compact.compact_rows_cuda = compact.compact_rows_plain
+    compact.expand_rows_cuda = compact.expand_rows_plain
+    try:
+        yield
+    finally:
+        compact.compact_rows_cuda, compact.expand_rows_cuda = saved
+
+
+def frame(device, stats=None, scene=None, seed=None, pmesh=None,
+          timer=None):
     """One render_scene call in float32, the whole frame one chunk, and its
     wall; with a mesh (`pmesh`), after a barrier of its ranks."""
     scene = glass_spheres(W, H) if scene is None else scene
@@ -602,8 +612,7 @@ def frame(device, compaction="auto", stats=None, scene=None, seed=None,
     t0 = time.perf_counter()
     canvas = render_scene(scene, dtype=torch.float32, device=device,
                           chunk_pixels=cam.width * cam.height,
-                          compaction=compaction, stats=stats, seed=seed,
-                          mesh=pmesh, timer=timer)
+                          stats=stats, seed=seed, mesh=pmesh, timer=timer)
     torch.cuda.synchronize()
     return canvas, time.perf_counter() - t0
 
@@ -644,25 +653,19 @@ def plain_mesh():
         mesh.closest_cuda, mesh.shadow_cuda = saved
 
 
-def mesh_bound(m, orig, dirs, aux_bytes):
-    """Least time of a mesh query on these inputs, two ways. Bytes: rays,
-    planes and boxes read once, t and index written once, at 3.35 TB/s.
-    Float32 operations at 67 TFLOP/s: the flat walk's — every (ray,
-    supercluster) slab test, and a Möller-Trumbore for each of the 128
-    triangles behind every test that passes — and the passed pairs'
-    alone, the least work any implementation of the contract does.
-    Returns (flat ms, bound_by, flat ops, pairs ms, passed pairs)."""
+def mesh_bounds(m, orig, dirs, aux_bytes):
+    """Least time of a mesh query on these inputs, two ways: the passed
+    pairs' alone (benchmark/roofline.mesh_bound, the least work any
+    implementation of the contract does), and the flat walk's, which adds
+    every (ray, supercluster) slab test to those operations against the
+    same bytes. Returns (flat ms, bound_by, flat ops, pairs ms, passed
+    pairs)."""
     n, nsc = orig.shape[0], m.box_min.shape[0]
-    rows = max(1, (1 << 22) // nsc)
-    passed = sum(int(mesh.cluster_mask(m.box_min, m.box_max, orig[r:r + rows],
-                                       dirs[r:r + rows]).sum())
-                 for r in range(0, n, rows))
-    pair_ops = passed * mesh.SC * MT_OPS
-    ops = n * nsc * SLAB_OPS + pair_ops
-    nbytes = (n * 6 + m.tris.numel() + 6 * nsc) * 4 + n * 8 \
-        + aux_bytes * nsc * mesh.SC
-    t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
-    t_pairs = max(pair_ops / FP32_OPS_PER_S, t_bytes)
+    passed = passed_pairs(mesh.cluster_mask, m.box_min, m.box_max, orig, dirs)
+    t_pairs, _ = mesh_bound(passed, n, nsc, m.tris.numel(), aux_bytes)
+    t_bytes, _ = mesh_bound(0, n, nsc, m.tris.numel(), aux_bytes)
+    ops = n * nsc * SLAB_OPS + passed * SC * MT_OPS
+    t_ops = ops / FP32_OPS_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", ops,
             t_pairs * 1e3, passed)
@@ -695,6 +698,41 @@ def mesh_level0(device):
         normalize(ir.light_points[0, 0][None] - comps.over_point),
         comps.valid)
     return ir, rt.mesh, o, d, so, sd
+
+
+def build_soup(device, n_tri=512 * 1024, n_rays=16384, seed=0):
+    """tools/bench_mesh_stream.py's soup: 64-triangle clusters along a
+    coarse grid walk (numpy seed `seed`) and rays between random points of
+    the grid (seed + 1). Returns (SceneIR, origins, directions)."""
+    c = 64
+    nc = n_tri // c
+    rng = np.random.default_rng(seed)
+    g = max(2, int(round(nc ** (1 / 3))))
+    idx = np.arange(nc)
+    centers = np.stack([idx % g, (idx // g) % g, idx // (g * g)],
+                       -1).astype(np.float32)
+    centers += rng.normal(0, 0.1, centers.shape)
+    base = centers[:, None, :] + rng.normal(0, 0.25, (nc, c, 3))
+    p1 = base.reshape(-1, 3).astype(np.float32)
+    e1 = rng.normal(0, 0.2, (nc * c, 3)).astype(np.float32)
+    e2 = rng.normal(0, 0.2, (nc * c, 3)).astype(np.float32)
+    v = np.stack([p1, p1 + e1, p1 + e2], 1)
+    meta = SceneMeta(n_triangles=nc * c, use_clusters=True, n_clusters=nc,
+                     cluster_size=c)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    ir = SceneIR(meta=meta, tri_p1=t(p1), tri_e1=t(e1), tri_e2=t(e2),
+                 cluster_min=t(v.reshape(nc, c * 3, 3).min(1)),
+                 cluster_max=t(v.reshape(nc, c * 3, 3).max(1)))
+    extent = float(centers.max())
+    rng = np.random.default_rng(seed + 1)
+    o = rng.uniform(-2, extent + 2, (n_rays, 3)).astype(np.float32)
+    tgt = rng.uniform(0, extent, (n_rays, 3)).astype(np.float32)
+    d = tgt - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return ir, t(o), t(d)
 
 
 def check_mesh_kernels(device):
@@ -806,7 +844,7 @@ def check_mesh_kernels(device):
         kern, plain = fns[kind.split()[-1]]
         ms = median_ms(lambda: kern(mm, oo, dd_), reps=20)
         plain_ms = median_ms(lambda: plain(mm, oo, dd_), reps=3)
-        bound, by, ops, bound_pairs, passed = mesh_bound(mm, oo, dd_, aux)
+        bound, by, ops, bound_pairs, passed = mesh_bounds(mm, oo, dd_, aux)
         log("mesh-kernels", f"{kind} {label} ({oo.shape[0]} rays x "
             f"{mm.tris.shape[1] * mesh.SC} triangles): kernel {ms:.3f} ms "
             f"(median of 20), plain {plain_ms:.3f} ms (median of 3); bound "
@@ -855,7 +893,7 @@ def time_frame_shadow(calls):
             raise AssertionError(f"mesh shadow != plain on launch {i} of "
                                  "the frame")
         ms = median_ms(lambda: mesh.shadow_cuda(m, o, d), reps=20)
-        bound, by, ops, bound_pairs, passed = mesh_bound(m, o, d, 5)
+        bound, by, ops, bound_pairs, passed = mesh_bounds(m, o, d, 5)
         live = int((o[:, 0] < 1e29).sum())
         log("mesh-frame", f"shadow launch {i}: {o.shape[0]} rays ({live} "
             f"live): equal=True; kernel {ms:.3f} ms (median of 20); bound "
@@ -989,7 +1027,8 @@ def render_showcase(device, reps):
     log("showcase", f"warm wall {wall:.4f} s (median of {walls}), "
         f"{W * H / wall:.4g} pixels/s, {traced / wall:.4g} traced rays/s "
         f"({traced} rays: spawn counts {spawned}, one shadow ray per lane)")
-    plain, _ = frame(device, compaction="plain", scene=scene)
+    with plain_compaction():
+        plain, _ = frame(device, scene=scene)
     same = torch.equal(torch.from_numpy(canvas), torch.from_numpy(plain))
     log("showcase-equal", f"kernel frame vs plain-compaction frame "
         f"bitwise={same}")
@@ -1039,6 +1078,15 @@ SEED = 7                  # the stochastic frames' seed
 CW = CH = 800             # the Cornell frame
 
 
+def dof_scene(width=800, height=400):
+    """glass_spheres through a circular aperture with 2x2 camera jitter
+    (phase 22)."""
+    sc = glass_spheres(width, height)
+    sc.camera = replace(sc.camera, usteps=2, vsteps=2, aperture=ApertureDesc(
+        kind="CIRCULAR_APERTURE", size=0.05, params=(1.0,), jitter=True))
+    return sc
+
+
 def render_dof(device, reps):
     """The stochastic camera path, counted: both compaction kernels must
     launch; the same seed bitwise, the plain compaction bitwise, another
@@ -1064,7 +1112,8 @@ def render_dof(device, reps):
         again, t = frame(device, scene=scene, seed=SEED)
         walls.append(t)
     wall = statistics.median(walls)
-    plain, _ = frame(device, compaction="plain", scene=scene, seed=SEED)
+    with plain_compaction():
+        plain, _ = frame(device, scene=scene, seed=SEED)
     other, _ = frame(device, scene=scene, seed=SEED + 1)
     same = np.array_equal(canvas, again)
     same_plain = np.array_equal(canvas, plain)
@@ -1245,7 +1294,7 @@ def check_cornell_mesh(device, rows=1 << 20):
                                    plain(m, o[idx], d[idx], *args))
         again, _ = _equal_outputs(kern(m, o, d, *args), got)
         ms = median_ms(lambda: kern(m, o, d, *args), reps=5)
-        bound, by, ops, bound_pairs, passed = mesh_bound(
+        bound, by, ops, bound_pairs, passed = mesh_bounds(
             m, o, d, 5 if query == "shadow" else 0)
         live = int((o[:, 0] < 1e29).sum())
         hits = int(torch.isfinite(got[0] if query == "closest"
@@ -1268,8 +1317,8 @@ def check_cornell_mesh(device, rows=1 << 20):
 
 
 def check_cornell_equal(device, canvas):
-    plain, _ = frame(device, compaction="plain", scene=cornell_box(CW, CH),
-                     seed=SEED)
+    with plain_compaction():
+        plain, _ = frame(device, scene=cornell_box(CW, CH), seed=SEED)
     same = np.array_equal(canvas, plain)
     log("cornell-equal", f"kernel frame vs plain-compaction frame at seed "
         f"{SEED} bitwise={same}")
@@ -1771,11 +1820,13 @@ def check_train_strip(device):
     gates prune (all-zero Tf: subgradient 0 bucketed)."""
     ts = TrainSet(device, rows=(H // 2 - 8, H // 2 + 8))
     kern = ts.grads(buckets=ts.buckets)
-    plain = ts.grads(buckets=ts.buckets, compaction="plain")
+    with plain_compaction():
+        plain = ts.grads(buckets=ts.buckets)
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         kern_d = ts.grads(buckets=ts.buckets)
-        plain_d = ts.grads(buckets=ts.buckets, compaction="plain")
+        with plain_compaction():
+            plain_d = ts.grads(buckets=ts.buckets)
     finally:
         torch.use_deterministic_algorithms(False)
     unrolled = ts.grads()
@@ -2234,7 +2285,8 @@ def check_soft_equal(device, canvas):
     """The kernel frame against the plain-compaction frame; a strip against
     the plain mesh queries and the unrolled trace; all bit for bit."""
     scene = soft_textured(W, H)
-    plain, _ = frame(device, compaction="plain", scene=scene)
+    with plain_compaction():
+        plain, _ = frame(device, scene=scene)
     same = np.array_equal(canvas, plain)
     log("soft-equal", f"kernel frame vs plain-compaction frame "
         f"bitwise={same}")
@@ -2259,7 +2311,7 @@ def time_soft_shadow(device):
                              mesh.shadow_plain(m, o[:head], d[:head]))
     plain_ms = median_ms(lambda: mesh.shadow_plain(m, o[:head], d[:head]),
                          reps=3)
-    bound, by, ops, bound_pairs, passed = mesh_bound(m, o, d, 5)
+    bound, by, ops, bound_pairs, passed = mesh_bounds(m, o, d, 5)
     log("soft-shadow-kernel", f"area light, level 0: {n} rays "
         f"({n // (W * H)} per lane) x {m.tris.shape[1] * mesh.SC} triangles:"
         f" kernel {ms:.3f} ms (median of 20), {ms * 1e6 / n:.3f} ns a ray; "
@@ -2631,8 +2683,8 @@ def check_fb_plain(cg):
     span = FB_HELD
     buckets = fb_buckets(cg.probe(0, span))
     kern, ovf = cg.grads(0, span, buckets)
-    with plain_mesh():
-        plain, ovf_p = cg.grads(0, span, buckets, compaction="plain")
+    with plain_mesh(), plain_compaction():
+        plain, ovf_p = cg.grads(0, span, buckets)
     same = all(torch.equal(kern[k], plain[k]) for k in kern)
     diff = _grad_diff(kern, plain)
     worst = max(diff, key=diff.get)
@@ -3015,22 +3067,10 @@ def two_ranks(reps, flagship, mcanvas, train_grads):
 DRYRUN_LOSS_RTOL = 1e-5
 
 
-def bench_entry_points(device, want):
-    """39: the bench's flagship cell, its frame against phase 4's canvas;
-    entry()'s forward step; the dry run on one rank and on two."""
-    from bench_torch import entry, headline
+def bench_entry_points(device):
+    """39: entry()'s forward step; the dry run on one rank and on two."""
+    from bench_torch import entry
     t0 = time.perf_counter()
-    res = headline.flagship(device, 3)
-    m = res["metrics"][headline.METRIC]
-    same = np.array_equal(res["image"], want)
-    log("bench", f"flagship cell: {m['value']:.4g} rays/s (median of "
-        f"{m['n']} rounds of {headline.REPS} frames, {m['min']:.4g} to "
-        f"{m['max']:.4g}); launches a round "
-        f"{res['info']['launches_per_round']}; its pixel_colors frame "
-        f"bitwise phase 4's canvas={same}")
-    if not same:
-        raise AssertionError("the bench's flagship frame differs from "
-                             "phase 4's canvas")
     fn, args = entry.entry(device)
     colors, overflow = fn(*args)
     ok = (tuple(colors.shape) == (64 * 32, 3)
@@ -3295,7 +3335,8 @@ def main():
     plain = None
     for _ in range(args.reps):
         walls.append(frame(device)[1])
-        plain, t = frame(device, compaction="plain")
+        with plain_compaction():
+            plain, t = frame(device)
         plain_walls.append(t)
     wall = statistics.median(walls)
     plain_wall = statistics.median(plain_walls)
@@ -3437,10 +3478,10 @@ def main():
         profile_to(args.profile, device, b0, f"{kind}; {smi}", wall,
                    mesh_wall)
 
-    # 39. the bench's flagship cell and driver entry points, after the
-    # profiled sections: run before them, it left the next profile of
-    # this process 2 kernel events short of its 20 calls
-    bench_entry_points(device, canvas)
+    # 39. the entry points, after the profiled sections: run before
+    # them, phase 39 left the next profile of this process 2 kernel events
+    # short of its 20 calls
+    bench_entry_points(device)
 
     rows = []
     for name, key, replaces, src, count in (

@@ -735,16 +735,8 @@ def _spawn(comps: Comps, want_refl: bool, want_refr: bool):
     return torch.cat(acts), torch.cat(rows)
 
 
-def _compactors(compaction: str):
-    if compaction == "auto":
-        return compact.compact_rows, compact.expand_rows
-    if compaction == "plain":
-        return compact.compact_rows_plain, compact.expand_rows_plain
-    raise ValueError(f"compaction must be 'auto' or 'plain': {compaction!r}")
-
-
 def trace_bucketed(ir: SceneIR, rt: RenderStatics, orig, dirs, depth: int,
-                   buckets, compaction: str = "auto", remat=False, rng=None):
+                   buckets, remat=False, rng=None):
     """Wavefront trace with device-side static-bucket compaction.
 
     Each level's live children are compacted, in order, into a bucket of
@@ -756,8 +748,6 @@ def trace_bucketed(ir: SceneIR, rt: RenderStatics, orig, dirs, depth: int,
     checks it once per chunk and re-renders (render.py).
 
     Per-lane arithmetic is identical to `trace`, so the canvas is too.
-    `compaction="plain"` forces the plain torch compaction on any device;
-    it exists for the tests that hold the kernels against it.
 
     Differentiable: compact_rows and expand_rows are each other's VJP, so
     the backward runs both kernels again on the card. The value gates of
@@ -768,7 +758,6 @@ def trace_bucketed(ir: SceneIR, rt: RenderStatics, orig, dirs, depth: int,
     the compactions stay outside the checkpoints. `rng` as in `trace`,
     except that a trace with no children draws from `rng` itself (the
     JAX package's quirk: its one level takes the key unfolded)."""
-    compact_fn, expand_fn = _compactors(compaction)
     want_refl, want_refr = _wants(ir, rt, depth)
     level_fn = _make_level_fn(remat)
     overflow = torch.zeros((), dtype=torch.bool, device=orig.device)
@@ -791,7 +780,7 @@ def trace_bucketed(ir: SceneIR, rt: RenderStatics, orig, dirs, depth: int,
         overflow = overflow | (act.sum() > B)
         entry["act"] = act
         entry["bucket"] = B
-        rows = compact_fn(src, act, B, FILL_ROW)
+        rows = compact.compact_rows(src, act, B, FILL_ROW)
         cur_o = rows[:, :3]
         cur_d = rows[:, 3:6]
 
@@ -802,7 +791,7 @@ def trace_bucketed(ir: SceneIR, rt: RenderStatics, orig, dirs, depth: int,
         if child_total is not None:
             packed = torch.cat([child_total.a, child_total.d,
                                 child_total.s], -1)
-            g = expand_fn(packed, e["act"])
+            g = compact.expand_rows(packed, e["act"])
             refl_raw, refr_raw = _split_children(
                 Triple(g[:, 0:3], g[:, 3:6], g[:, 6:9]), comps.p.shape[0],
                 want_refl, want_refr)
@@ -812,13 +801,11 @@ def trace_bucketed(ir: SceneIR, rt: RenderStatics, orig, dirs, depth: int,
     return child_total, overflow
 
 
-def spawn_counts(ir: SceneIR, rt: RenderStatics, orig, dirs, depth: int,
-                 compaction: str = "auto"):
+def spawn_counts(ir: SceneIR, rt: RenderStatics, orig, dirs, depth: int):
     """Per-level live-children counts for bucket calibration, as a list of
     0-d device tensors (the caller syncs once for all of them). Uses
     buckets of PROBE_CEILING x the primary batch internally, so the counts
     are exact unless a level spawns more than that."""
-    compact_fn, _ = _compactors(compaction)
     want_refl, want_refr = _wants(ir, rt, depth)
     if not (want_refl or want_refr):
         return []
@@ -829,7 +816,7 @@ def spawn_counts(ir: SceneIR, rt: RenderStatics, orig, dirs, depth: int,
         comps = prepare_computations(ir, rt, cur_o, cur_d)
         act, src = _spawn(comps, want_refl, want_refr)
         counts.append(act.sum())
-        rows = compact_fn(src, act, B, FILL_ROW)
+        rows = compact.compact_rows(src, act, B, FILL_ROW)
         cur_o = rows[:, :3]
         cur_d = rows[:, 3:6]
     return counts

@@ -216,8 +216,7 @@ def primary_samples(cam, cam_rt, det_table, px, py, ck):
 
 
 def pixel_colors(ir: SceneIR, rt, cam_rt, px, py, uv, ap, n_samples: int,
-                 path_length: int, remat=False, buckets=None,
-                 compaction: str = "auto", rng=None):
+                 path_length: int, remat=False, buckets=None, rng=None):
     """Pixel ids (with subpixel uv and aperture offsets), each repeated
     n_samples times in a row -> ((n_pixels, 3) linear colors, overflow).
 
@@ -253,8 +252,8 @@ def pixel_colors(ir: SceneIR, rt, cam_rt, px, py, uv, ap, n_samples: int,
         overflow = torch.zeros((), dtype=torch.bool, device=orig.device)
     else:
         triple, overflow = trace_bucketed(
-            ir, rt, orig, dirs, path_length, list(buckets),
-            compaction=compaction, remat=remat, rng=rng)
+            ir, rt, orig, dirs, path_length, list(buckets), remat=remat,
+            rng=rng)
     n = px.shape[0] // n_samples
     a = triple.a.reshape(n, n_samples, 3).mean(1)
     d = triple.d.reshape(n, n_samples, 3).mean(1)
@@ -264,7 +263,6 @@ def pixel_colors(ir: SceneIR, rt, cam_rt, px, py, uv, ap, n_samples: int,
 
 def render_scene(scene: SceneDesc, dtype=torch.float32,
                  chunk_pixels: int = 8192, device=None,
-                 compaction: str = "auto",
                  stats: Optional[dict] = None,
                  checkpoint_path: Optional[str] = None,
                  checkpoint_every: int = 8,
@@ -281,9 +279,7 @@ def render_scene(scene: SceneDesc, dtype=torch.float32,
     bit for bit. A deterministic scene draws nothing and ignores the
     seed. Photon GI traces its photon maps first, in the same call.
     Chunks are cut to SHADOW_RAYS_PER_CHUNK rays times the scene's most
-    light samples plus its final-gather rays per lane.
-    `compaction="plain"` forces the plain torch compaction (for tests that
-    hold the kernels against it); it changes no draw. If `stats` is a
+    light samples plus its final-gather rays per lane. If `stats` is a
     dict, it receives the calibrated `buckets`, the counts of chunks that
     needed a bucket escalation (`escalations`) or the exact fallback
     (`exact_chunks`), and for GI the photon pass's `photon_seconds` and
@@ -310,16 +306,16 @@ def render_scene(scene: SceneDesc, dtype=torch.float32,
     remove = None if timer is None else add_sink(timer)
     try:
         with unit("render_scene"):
-            return _render(scene, dtype, chunk_pixels, device, compaction,
-                           stats, checkpoint_path, checkpoint_every, seed,
-                           mesh, progress)
+            return _render(scene, dtype, chunk_pixels, device, stats,
+                           checkpoint_path, checkpoint_every, seed, mesh,
+                           progress)
     finally:
         if remove is not None:
             remove()
 
 
-def _render(scene, dtype, chunk_pixels, device, compaction, stats,
-            checkpoint_path, checkpoint_every, seed, mesh, progress):
+def _render(scene, dtype, chunk_pixels, device, stats, checkpoint_path,
+            checkpoint_every, seed, mesh, progress):
     cfg = scene.config
     cam = scene.camera
     if device is None and mesh is not None:
@@ -379,8 +375,7 @@ def _render(scene, dtype, chunk_pixels, device, compaction, stats,
         with span("render.probe"):
             counts = spawn_counts(ir, rt, *rays_for_pixels(
                 cam_rt, *primary_samples(cam, cam_rt, det_table, px, py,
-                                         ck)), path_length,
-                compaction=compaction)
+                                         ck)), path_length)
             if not counts:
                 return []
             with host_sync("probe_counts"):
@@ -391,7 +386,7 @@ def _render(scene, dtype, chunk_pixels, device, compaction, stats,
             res, ovf = pixel_colors(
                 ir, rt, cam_rt,
                 *primary_samples(cam, cam_rt, det_table, px, py, ck), S,
-                path_length, buckets=buckets, compaction=compaction,
+                path_length, buckets=buckets,
                 rng=None if ck is None else ck.fold(1))
         with host_sync("overflow"):
             return res, bool(agreed(ovf))

@@ -139,10 +139,6 @@ def test_bucketed_matches_unrolled(dtype):
     assert not bool(ovf)
     for x, y in zip(exact, got):
         assert torch.equal(x, y)
-    plain, _ = tintg.trace_bucketed(ir, rt, o, d, DEPTH, buckets,
-                                    compaction="plain")
-    for x, y in zip(got, plain):
-        assert torch.equal(x, y)
     _, ovf = tintg.trace_bucketed(ir, rt, o, d, DEPTH,
                                   [8] + buckets[1:])
     assert bool(ovf)

@@ -128,18 +128,15 @@ def test_showcase_f32_matches_jax(monkeypatch):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_showcase_bucketed_matches_unrolled(dtype):
-    """trace_bucketed equals the unrolled exact trace bit for bit, with
-    the CUDA-path wrapper and the plain compaction alike."""
+    """trace_bucketed equals the unrolled exact trace bit for bit."""
     ir, rt, o, d = _port_side(dtype, 32, 16)
     exact = tintg.trace(ir, rt, o, d, DEPTH)
     counts = [int(c) for c in tintg.spawn_counts(ir, rt, o, d, DEPTH)]
     buckets = [max(64, int(np.ceil(c * 1.25 / 64)) * 64) for c in counts]
-    for compaction in ("auto", "plain"):
-        got, ovf = tintg.trace_bucketed(ir, rt, o, d, DEPTH, buckets,
-                                        compaction=compaction)
-        assert not bool(ovf)
-        for x, y in zip(exact, got):
-            assert torch.equal(x, y)
+    got, ovf = tintg.trace_bucketed(ir, rt, o, d, DEPTH, buckets)
+    assert not bool(ovf)
+    for x, y in zip(exact, got):
+        assert torch.equal(x, y)
 
 
 def test_render_scene_showcase_on_cpu(monkeypatch, tmp_path):

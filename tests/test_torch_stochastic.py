@@ -12,8 +12,7 @@ float64, with the JAX side's draws fed to the port (scene_convert.JaxKeys):
   (chunk fold_in(key, c), then fold_in(ck, 1), then the level, then
   split(key, 3) per light): within 1e-9;
 - render_scene: the same seed gives the same frame bit for bit, another
-  seed another frame, the plain compaction the same frame; a
-  deterministic scene draws nothing.
+  seed another frame; a deterministic scene draws nothing.
 """
 
 import dataclasses
@@ -268,8 +267,7 @@ def test_jittered_frame_matches_jax():
 
 def test_render_scene_seeds():
     """A jittered-camera, circular-aperture, jittered-light frame: the same
-    seed bit for bit, the plain compaction the same frame, another seed
-    another frame."""
+    seed bit for bit, another seed another frame."""
     sc = _jittered_scene(12, 8)
     sc.camera = dataclasses.replace(
         sc.camera, usteps=2, vsteps=2, aperture=tmodel.ApertureDesc(
@@ -278,8 +276,6 @@ def test_render_scene_seeds():
     a = trender.render_scene(sc, seed=3, **kw)
     assert np.isfinite(a).all() and a.shape == (8, 12, 3)
     np.testing.assert_array_equal(a, trender.render_scene(sc, seed=3, **kw))
-    np.testing.assert_array_equal(
-        a, trender.render_scene(sc, seed=3, compaction="plain", **kw))
     assert np.abs(trender.render_scene(sc, seed=4, **kw) - a).max() > 1e-3
 
 
